@@ -1,0 +1,74 @@
+"""Fixed-shape episodic memory (counterpart of ocl_tpu/buffer/state.py).
+
+The buffer lives in fixed-shape device tensors that strategies update in
+place. `current_index` (slots filled, a prefix) and `n_seen_so_far` are
+Python ints: they depend only on batch counts, so branching on them costs no
+device sync. Per-class counts are a device tensor kept up to date by
+`write_slots`.
+
+The image and label tensors hold one extra row past `mem_size`. A write that
+is masked off is sent there instead of being dropped (JAX's scatter
+mode="drop"), so a masked write needs no host-side compaction; the row is
+never read.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ocl_tpu_torch.config import input_size_match, n_classes_match
+
+
+@dataclass
+class BufferState:
+    slot_imgs: torch.Tensor     # [mem_size + 1, H, W, C] float32; last row is scratch
+    slot_labels: torch.Tensor   # [mem_size + 1] int64; last row is scratch
+    class_counts: torch.Tensor  # [n_classes] int64 counts of labels in filled slots
+    current_index: int = 0      # slots filled (prefix property)
+    n_seen_so_far: int = 0
+
+    @property
+    def mem_size(self) -> int:
+        return self.slot_labels.shape[0] - 1
+
+    @property
+    def imgs(self) -> torch.Tensor:
+        return self.slot_imgs[:-1]
+
+    @property
+    def labels(self) -> torch.Tensor:
+        return self.slot_labels[:-1]
+
+
+def init_buffer(mem_size: int, data: str, device) -> BufferState:
+    shape = tuple(input_size_match[data])
+    return BufferState(
+        slot_imgs=torch.zeros((mem_size + 1,) + shape, device=device),
+        slot_labels=torch.zeros((mem_size + 1,), dtype=torch.int64, device=device),
+        class_counts=torch.zeros((n_classes_match[data],), dtype=torch.int64, device=device),
+    )
+
+
+def valid_mask(buf: BufferState) -> torch.Tensor:
+    """[mem_size] bool — True for filled slots (slots fill as a prefix)."""
+    return torch.arange(buf.mem_size, device=buf.slot_labels.device) < buf.current_index
+
+
+def write_slots(buf: BufferState, slot_idx, x, y, write_mask) -> None:
+    """Overwrite slot `slot_idx[i]` with (x[i], y[i]) where write_mask[i], in place.
+
+    Keeps class_counts up to date: the evicted label of a filled slot loses
+    one, the incoming label gains one. Masked-off writes change nothing.
+    Duplicate slot indices must not occur among masked-on entries
+    (strategies guarantee this).
+    """
+    mem = buf.mem_size
+    old_labels = buf.slot_labels[slot_idx.clamp(0, mem - 1)]
+    was_filled = (slot_idx < buf.current_index) & write_mask
+    buf.class_counts.index_add_(0, old_labels, -was_filled.long())
+    buf.class_counts.index_add_(0, y, write_mask.long())
+    safe_idx = torch.where(write_mask, slot_idx, mem)
+    buf.slot_imgs[safe_idx] = x
+    buf.slot_labels[safe_idx] = y

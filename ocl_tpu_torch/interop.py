@@ -1,0 +1,108 @@
+"""Weights between ocl_tpu pytrees and the port's state dict.
+
+`from_jax(params, batch_stats)` turns the Reduced ResNet-18 pytrees of
+ocl_tpu (numpy leaves, e.g. after `jax.tree_util.tree_map(np.asarray, ...)`)
+into a state dict for `ocl_tpu_torch.models.resnet.ResNet`; `to_jax` does the
+reverse. Conv kernels go HWIO <-> OIHW and the Dense kernel [in, out] <->
+Linear weight [out, in].
+
+Feature order: the port flattens pooled features in NHWC order, as the JAX
+package does, so the Dense kernel needs only the transpose. A torch model
+that flattens NCHW (the original reference) orders features (C, h, w)
+instead; at 32x32 the trunk pools to one cell and the two orders agree, but
+an 84- or 128-pixel input pools to 2x2 / 4x4 cells, and weights from such a
+model need their input columns permuted from (C, h, w) to (h, w, C).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# JAX submodule of a stage block <-> port attribute
+_BLOCK_MODS = {"Conv3x3_0": "conv1", "Conv3x3_1": "conv2", "Conv1x1_0": "short_conv",
+               "BatchNorm_0": "bn1", "BatchNorm_1": "bn2", "BatchNorm_2": "short_bn"}
+_BLOCK_MODS_INV = {v: k for k, v in _BLOCK_MODS.items()}
+# BatchNorm leaves: port name <-> (JAX tree, JAX leaf)
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("stats", "mean"), "running_var": ("stats", "var")}
+_BN_LEAVES_INV = {v: k for k, v in _BN_LEAVES.items()}
+
+
+def _jax_entry(key: str):
+    """Port state-dict key -> (JAX tree 'params' or 'stats', path, kind)."""
+    parts = key.split(".")
+    if parts[0] == "stages":
+        prefix = ("stages_{}_{}".format(parts[1], parts[2]), _BLOCK_MODS_INV[parts[3]])
+        mod, leaf = parts[3], parts[4]
+    else:
+        prefix, mod, leaf = (parts[0],), parts[0], parts[1]
+    if mod == "linear":
+        return "params", ("linear", "Dense_0", "kernel" if leaf == "weight" else "bias"), \
+            "dense" if leaf == "weight" else "plain"
+    if "conv" in mod:
+        return "params", prefix + ("Conv_0", "kernel"), "conv"
+    tree, jleaf = _BN_LEAVES[leaf]
+    return tree, prefix + (jleaf,), "plain"
+
+
+def _port_key(tree: str, path: tuple) -> str:
+    """Inverse of `_jax_entry`."""
+    if path[0] == "linear":
+        return "linear." + ("weight" if path[-1] == "kernel" else "bias")
+    if path[0].startswith("stages_"):
+        _, s, b = path[0].split("_")
+        prefix = "stages.{}.{}.{}".format(s, b, _BLOCK_MODS[path[1]])
+    else:
+        prefix = path[0]
+    if path[-1] == "kernel":
+        return prefix + ".weight"
+    return prefix + "." + _BN_LEAVES_INV[(tree, path[-1])]
+
+
+def _to_torch(value, kind):
+    a = np.asarray(value, np.float32)
+    if kind == "conv":
+        a = np.transpose(a, (3, 2, 0, 1))   # HWIO -> OIHW
+    elif kind == "dense":
+        a = a.T                             # [in, out] -> [out, in]
+    return torch.from_numpy(np.ascontiguousarray(a).copy())
+
+
+def _to_numpy(t, kind):
+    a = t.detach().cpu().numpy()
+    if kind == "conv":
+        a = np.transpose(a, (2, 3, 1, 0))   # OIHW -> HWIO
+    elif kind == "dense":
+        a = a.T
+    return np.ascontiguousarray(a).copy()
+
+
+def _leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def from_jax(params, batch_stats) -> dict:
+    """ocl_tpu (params, batch_stats) pytrees -> port state dict."""
+    sd = {}
+    for tree, leaves in (("params", params), ("stats", batch_stats)):
+        for path, value in _leaves(leaves):
+            key = _port_key(tree, path)
+            sd[key] = _to_torch(value, _jax_entry(key)[2])
+    return sd
+
+
+def to_jax(state_dict) -> tuple[dict, dict]:
+    """Port state dict -> ocl_tpu (params, batch_stats) pytrees of numpy arrays."""
+    out = {"params": {}, "stats": {}}
+    for key, value in state_dict.items():
+        tree, path, kind = _jax_entry(key)
+        node = out[tree]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = _to_numpy(value, kind)
+    return out["params"], out["stats"]

@@ -1,0 +1,60 @@
+"""Model construction and apply helpers (counterpart of ocl_tpu/models/__init__.py).
+
+`setup_architecture` builds the Reduced ResNet-18 per dataset. The JAX
+package's pure `forward_train(module, params, stats, x, w)` becomes
+`forward_train(model, x, w)`: the model holds its parameters, and the
+train-mode forward folds the batch's BN statistics into the model's running
+buffers in place.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ocl_tpu_torch.config import input_size_match, n_classes_match
+from ocl_tpu_torch.models.layers import torch_init_
+from ocl_tpu_torch.models.resnet import Reduced_ResNet18
+
+# Pooled spatial cells of the Reduced ResNet-18 trunk per input resolution;
+# feature dim = cells * nf * 8 -> 160 / 640 / 2560 at nf=20.
+POOLED_CELLS = {32: 1, 84: 4, 128: 16, 50: 1}
+
+
+def feature_dim_for(data: str, nf: int = 20) -> int:
+    return POOLED_CELLS[input_size_match[data][0]] * nf * 8
+
+
+def setup_architecture(params, generator: torch.Generator, device) -> torch.nn.Module:
+    """Reduced ResNet-18 for `params.data`, its weights drawn from `generator`
+    (a CPU generator, so a seed gives the same weights on every device) and
+    moved to `device`."""
+    if params.agent in ("SCR", "SCP", "CNDPM"):
+        raise NotImplementedError(
+            "the {} architecture is not ported yet".format(params.agent))
+    if getattr(params, "compute_dtype", "fp32") != "fp32":
+        raise NotImplementedError("the port computes in fp32 only so far")
+    nf = getattr(params, "nf", 20)
+    model = Reduced_ResNet18(n_classes_match[params.data], nf=nf,
+                             feature_dim=feature_dim_for(params.data, nf))
+    torch_init_(model, generator)
+    return model.to(device)
+
+
+def forward_train(model, x, w=None):
+    """Training-mode forward; returns logits and folds the batch's BN
+    statistics into the running buffers. `w` [B] leaves masked rows out of
+    those statistics. Gradients flow when the caller has them enabled."""
+    return model(x, train=True, w=w)
+
+
+@torch.no_grad()
+def forward_eval(model, x):
+    """Logits with the BN running statistics; no mutation, no gradients."""
+    return model(x, train=False)
+
+
+@torch.no_grad()
+def features_eval(model, x):
+    """Deep features in eval mode (BN running stats, no mutation)."""
+    return model.features(x, train=False)
+

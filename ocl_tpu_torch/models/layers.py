@@ -1,0 +1,93 @@
+"""Shared layers: masked torch-semantics BatchNorm, convs, pooling, init.
+
+Counterpart of ocl_tpu/models/layers.py. Modules take NCHW tensors (the
+ResNet permutes its NHWC input once, which leaves them in channels_last
+memory). `PatchConv`, a TPU lowering no path uses, is not ported.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm2d semantics that can leave masked rows out of the statistics.
+
+    As in torch: normalisation uses the biased batch variance, the running
+    variance takes the unbiased n/(n-1) one, new = (1 - m) * old + m * batch
+    with m = 0.1, eps 1e-5. `w` [B] weights rows in the batch statistics
+    (fixed-shape memory batches carry validity masks), so n = sum(w) * H * W.
+    Statistics are computed in fp32. nn.BatchNorm2d cannot drop masked rows,
+    hence plain tensor code.
+    """
+
+    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x, train: bool, w=None):
+        xf = x.float()
+        if train:
+            dims = (0, 2, 3)
+            if w is None:
+                n = float(x.numel() // x.shape[1])
+                mean = xf.mean(dims)
+                var = (xf - mean[:, None, None]).square().mean(dims)
+            else:
+                spatial = x.shape[2] * x.shape[3]
+                wf = w.float().reshape(-1, 1, 1, 1)
+                n = torch.clamp(wf.sum() * spatial, min=1.0)
+                mean = (xf * wf).sum(dims) / n
+                var = ((xf - mean[:, None, None]).square() * wf).sum(dims) / n
+            with torch.no_grad():
+                if w is None:
+                    unbiased = var * (n / max(n - 1.0, 1.0))
+                else:
+                    unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
+                m = self.momentum
+                self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight.float()
+        out = (xf - mean[:, None, None]) * inv[:, None, None] + self.bias.float()[:, None, None]
+        return out.to(x.dtype)
+
+
+def Conv3x3(in_planes: int, planes: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(in_planes, planes, 3, stride=stride, padding=1, bias=False)
+
+
+def Conv1x1(in_planes: int, planes: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(in_planes, planes, 1, stride=stride, padding=0, bias=False)
+
+
+TorchLinear = nn.Linear
+
+
+def torch_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """Redraw every Conv2d/Linear parameter from torch's default distribution,
+    U(-1/sqrt(fan_in), +1/sqrt(fan_in)) (kaiming_uniform with a=sqrt(5) for
+    weights, the same bound for biases), from an explicit generator."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                bound = 1.0 / math.sqrt(fan_in)
+                m.weight.uniform_(-bound, bound, generator=generator)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=generator)
+
+
+def avg_pool(x, window: int):
+    """torch avg_pool2d(x, k) on NCHW: kernel k, stride k, floor mode."""
+    return F.avg_pool2d(x, window)

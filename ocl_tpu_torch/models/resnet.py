@@ -1,0 +1,85 @@
+"""Reduced ResNet-18 for online continual learning (counterpart of
+ocl_tpu/models/resnet.py).
+
+BasicBlock [2,2,2,2], nf=20, bias'd linear head; feature dim 160 at 32x32.
+`features` and `logits` stay separate: the ASER KNN-SV scoring consumes
+`features`. Inputs are NHWC; `features` permutes them to NCHW. Pooled features are flattened in NHWC order,
+the JAX package's, so its Dense kernel maps onto `linear` by a transpose
+alone (ocl_tpu_torch/interop.py). The other ResNets and SupConResNet are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch.nn.functional as F
+from torch import nn
+
+from ocl_tpu_torch.models.layers import BatchNorm, Conv1x1, Conv3x3, TorchLinear, avg_pool
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = Conv3x3(in_planes, planes, stride)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = Conv3x3(planes, planes)
+        self.bn2 = BatchNorm(planes)
+        self.has_shortcut = stride != 1 or in_planes != self.expansion * planes
+        if self.has_shortcut:
+            self.short_conv = Conv1x1(in_planes, self.expansion * planes, stride)
+            self.short_bn = BatchNorm(self.expansion * planes)
+
+    def forward(self, x, train: bool, w=None):
+        out = F.relu(self.bn1(self.conv1(x), train, w))
+        out = self.bn2(self.conv2(out), train, w)
+        if self.has_shortcut:
+            x = self.short_bn(self.short_conv(x), train, w)
+        return F.relu(out + x)
+
+
+class ResNet(nn.Module):
+    """GEM/MIR-style ResNet trunk + linear head (reference: models/resnet.py:71-109)."""
+
+    def __init__(self, num_blocks: Sequence[int], num_classes: int, nf: int = 20,
+                 bias: bool = True, pool_window: int = 4, in_channels: int = 3,
+                 feature_dim: int | None = None):
+        super().__init__()
+        self.pool_window = pool_window
+        self.conv1 = Conv3x3(in_channels, nf)
+        self.bn1 = BatchNorm(nf)
+        stages = []
+        in_planes = nf
+        for stage, (n, stride) in enumerate(zip(num_blocks, (1, 2, 2, 2))):
+            planes = nf * (2 ** stage)
+            blocks = []
+            for i in range(n):
+                blocks.append(BasicBlock(in_planes, planes, stride if i == 0 else 1))
+                in_planes = planes * BasicBlock.expansion
+            stages.append(nn.ModuleList(blocks))
+        self.stages = nn.ModuleList(stages)
+        self.linear = TorchLinear(feature_dim or in_planes, num_classes, bias=bias)
+
+    def features(self, x, train: bool = False, w=None):
+        # NHWC -> contiguous NCHW. The permuted view alone (channels_last
+        # memory) crashes the CPU conv backward of PyTorch 2.13 in this trunk.
+        out = x.permute(0, 3, 1, 2).contiguous()
+        out = F.relu(self.bn1(self.conv1(out), train, w))
+        for stage in self.stages:
+            for blk in stage:
+                out = blk(out, train, w)
+        out = avg_pool(out, self.pool_window)
+        return out.permute(0, 2, 3, 1).reshape(out.shape[0], -1)
+
+    def logits(self, feats):
+        return self.linear(feats)
+
+    def forward(self, x, train: bool = False, w=None):
+        return self.logits(self.features(x, train, w))
+
+
+def Reduced_ResNet18(nclasses, nf=20, bias=True, feature_dim=None):
+    return ResNet([2, 2, 2, 2], nclasses, nf, bias, feature_dim=feature_dim)

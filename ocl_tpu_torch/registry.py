@@ -1,0 +1,26 @@
+"""Name registries of the port (counterpart of ocl_tpu/registry.py).
+
+Entries resolve lazily, as in the JAX registry. Only the names the port has
+so far are registered; the runner names what is missing.
+"""
+
+from __future__ import annotations
+
+
+def _lazy(path, name):
+    def build(*args, **kwargs):
+        import importlib
+
+        mod = importlib.import_module(path)
+        return getattr(mod, name)(*args, **kwargs)
+
+    return build
+
+
+data_objects = {
+    "synthetic": _lazy("ocl_tpu_torch.data.datasets", "Synthetic"),
+}
+
+agents = {
+    "ER": _lazy("ocl_tpu_torch.agents.er", "ExperienceReplay"),
+}
