@@ -5,15 +5,30 @@
 
 Phases, each printed on its own line; any failure raises and exits non-zero:
   1. device  — require CUDA; print the card and `nvidia-smi` name, power limit;
-  2. build   — build the port's CUDA kernel (pairwise_sqdist) from the checkout;
-  3. kernel  — the kernel against its plain torch version at the ASER shapes
-               (both TF32 switches off): max relative error <= 1e-5 and max
-               absolute error <= 1e-3; CUDA-event times (median of 100) of
-               both; a non-contiguous input must raise;
+  2. build   — build the port's CUDA kernel (pairwise_sqdist) from the checkout,
+               print nvcc's register, shared-memory and spill report, and hold
+               the launch plan's blocks per SM against CUDA's occupancy
+               calculator;
+  3. kernel  — the kernel against its plain torch version (both TF32 switches
+               off): max relative error <= 1e-5 and max absolute error <= 1e-3
+               at the ASER shapes, a ragged D, a view that starts one float
+               into its storage (both take 4-byte copies), D = 2048 (over
+               48 KB of shared memory), D = 4096 and 4099 (slabs of D through
+               a ring of two) and 1000 x 1000 x 640 (many waves); an exact 0
+               on the diagonal of pairwise_sqdist(a, a); a non-contiguous
+               input must raise. Then, per ASER shape, three times of the kernel, of its
+               plain version, of the launch floor and of torch.cdist (the
+               nearest library call: it returns the root), with the bound:
+                 device  — 100 calls in one CUDA graph, replayed (card time);
+                 enqueue — CUDA events around 100 eager calls (issue rate);
+                 host    — host clock per eager call, no sync (Python cost);
+               and the kernel's time by name from torch.profiler at one shape;
   4. main    — ER with ASER update + retrieval through the port's CLI at the
                full width of Reduced ResNet-18 (nf 20), 5 tasks x 100 steps
                of the synthetic stream; the kernel must have launched, and
-               Avg_End_Acc must be finite and above 0.5;
+               Avg_End_Acc must be finite and above 0.5. Then 20 steps with a
+               full buffer (every step takes the SV paths) under
+               torch.profiler: the kernel's device time and launches per step;
   5. er      — one task of plain ER (random update + retrieval, two-pass) on
                the same stream; its accuracy on that task must exceed 0.5.
 Then one JSON line of kernel figures, and last the result line
@@ -26,23 +41,28 @@ import contextlib
 import io
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
 
-# the ASER shapes: update N = M = 30, retrieval 10 x 20 (adversarial) and
+# the ASER shapes: update 30 x 30, retrieval 10 x 20 (adversarial) and
 # 20 x 20 (cooperative) on the synthetic stream; 210 x 210, 10 x 200 and
 # 200 x 200 on the CIFAR-100 recipe; D = 160 at nf 20
-SLICE_SHAPES = [(30, 30, 160), (10, 20, 160), (20, 20, 160), (210, 210, 160), (200, 200, 160)]
-CHECK_SHAPES = SLICE_SHAPES + [(13, 37, 50), (1, 1, 1), (1000, 1000, 640)]
+SLICE_SHAPES = [(30, 30, 160), (10, 20, 160), (20, 20, 160),
+                (210, 210, 160), (10, 200, 160), (200, 200, 160)]
+# ragged D (d % 4 != 0), tiny, over 48 KB of shared memory, slabs of D
+# through the ring (one of them ragged), and many waves
+CHECK_SHAPES = SLICE_SHAPES + [(13, 37, 50), (7, 5, 3), (1, 1, 1), (7, 5, 2048),
+                               (3, 5, 4096), (33, 17, 4099), (1000, 1000, 640)]
 MAX_REL, MAX_ABS = 1e-5, 1e-3
+KERNEL = "pairwise_sqdist"
 MAIN_FLAGS = ["--device", "cuda", "--data", "synthetic", "--agent", "ER",
               "--update", "ASER", "--retrieve", "ASER", "--aser_type", "asvm",
               "--k", "3", "--n_smp_cls", "2.0", "--mem_size", "1000",
               "--eps_mem_batch", "10", "--batch", "10", "--learning_rate", "0.1",
               "--nf", "20", "--num_tasks", "5", "--synthetic_size", "500",
-              "--num_runs", "1", "--matmul_precision", "highest"]
+              "--num_runs", "1", "--matmul_precision", "highest", "--verbose", "False"]
+PROFILE_STEPS = 20
 
 
 class CheckFailed(RuntimeError):
@@ -52,20 +72,6 @@ class CheckFailed(RuntimeError):
 def require(cond, msg):
     if not cond:
         raise CheckFailed(msg)
-
-
-def cuda_ms(torch, fn, reps=100, warmup=10):
-    """Median over `reps` launches of fn's device time, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-             for _ in range(reps)]
-    for start, end in pairs:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
 class Tee(io.TextIOBase):
@@ -80,6 +86,149 @@ class Tee(io.TextIOBase):
 
     def flush(self):
         self.out.flush()
+
+
+def errors(torch, got, want):
+    err = (got - want).abs()
+    rel = err / want.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return err.max().item(), rel.max().item()
+
+
+def check_kernel(torch, distance, device):
+    """Phase 3's agreement checks; returns the largest absolute error."""
+    pairwise_sqdist = distance.pairwise_sqdist
+    pairwise_sqdist_plain = distance.pairwise_sqdist_plain
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def check(label, a, b):
+        got = pairwise_sqdist(a, b)
+        torch.cuda.synchronize()
+        abs_err, rel_err = errors(torch, got, pairwise_sqdist_plain(a, b))
+        n, d = a.shape
+        plan = distance.launch_plan(n, b.shape[0], d,
+                                    distance.load_width(d, a.data_ptr(), b.data_ptr()))
+        print("[kernel] {}: max_abs_err {:.3e} max_rel_err {:.3e} | {}-byte copies, {} slab(s) "
+              "of {}, {} B shared{}, {} blocks".format(
+                  label, abs_err, rel_err, 4 * plan.vec, -(-d // plan.slab) if plan.slab else 0,
+                  plan.slab, plan.smem_bytes, " (opted in)" if plan.opts_in else "", plan.grid))
+        require(math.isfinite(abs_err) and rel_err <= MAX_REL and abs_err <= MAX_ABS,
+                "kernel disagrees with plain at {}".format(label))
+        return abs_err
+
+    max_abs = 0.0
+    for n, m, d in CHECK_SHAPES:
+        # scaled so that a distance stays near 2 x 160 at every d: the fp32
+        # rounding of either version then stays well under MAX_ABS
+        scale = min(1.0, (160 / d) ** 0.5)
+        a = torch.randn(n, d, device=device, generator=g) * scale
+        b = torch.randn(m, d, device=device, generator=g) * scale
+        max_abs = max(max_abs, check("{}x{}x{}".format(n, m, d), a, b))
+    for n, m, d in [(30, 30, 160), (210, 210, 160)]:
+        # contiguous views one float into their storage: not 16-byte aligned
+        a = torch.randn(n * d + 1, device=device, generator=g)[1:].view(n, d)
+        b = torch.randn(m * d + 1, device=device, generator=g)[1:].view(m, d)
+        require(a.data_ptr() % 16 != 0, "the offset view is aligned")
+        max_abs = max(max_abs, check("{}x{}x{} a misaligned".format(n, m, d), a, b.clone()))
+        max_abs = max(max_abs, check("{}x{}x{} b misaligned".format(n, m, d), a.clone(), b))
+    for n in (30, 210):
+        a = torch.randn(n, 160, device=device, generator=g)
+        diag = pairwise_sqdist(a, a).diagonal()
+        require(bool((diag == 0).all()), "pairwise_sqdist(a, a) at {}x160 has a diagonal "
+                "entry {} != 0".format(n, diag.abs().max().item()))
+        print("[kernel] pairwise_sqdist(a, a) at {}x160: diagonal exactly 0".format(n))
+    a = torch.randn(160, 30, device=device, generator=g)
+    b = torch.randn(30, 160, device=device, generator=g)
+    try:
+        pairwise_sqdist(a.t(), b)
+    except ValueError as e:
+        print("[kernel] non-contiguous input raises: {}".format(e))
+    else:
+        raise CheckFailed("a non-contiguous input did not raise")
+    return max_abs
+
+
+def time_kernel(torch, pairwise_sqdist, pairwise_sqdist_plain, device):
+    """Phase 3's times: one dict per slice shape, and the profiler cross-check."""
+    from ocl_tpu_torch.tools import kernel_timing as kt
+
+    floor = kt.launch_floor()
+    print("[kernel] launch floor (t.zero_() on 1 element): device {:.5f} ms, enqueue {:.5f} ms, "
+          "host {:.2f} us".format(floor["device_ms"], floor["enqueue_ms"], floor["host_us"]))
+    g = torch.Generator(device=device).manual_seed(1)
+    shapes = []
+    for n, m, d in SLICE_SHAPES:
+        a = torch.randn(n, d, device=device, generator=g)
+        b = torch.randn(m, d, device=device, generator=g)
+        kernel = kt.figures(lambda: pairwise_sqdist(a, b))
+        plain = kt.figures(lambda: pairwise_sqdist_plain(a, b))
+        library = kt.figures(lambda: torch.cdist(a, b, compute_mode="use_mm_for_euclid_dist"))
+        bound_ms, bound_by = kt.sqdist_bound(n, m, d)
+        row = {"shape": [n, m, d], **kernel, "plain": plain, "library": library,
+               "floor_ms": floor["device_ms"], "bound_ms": bound_ms, "bound_by": bound_by}
+        shapes.append(row)
+        print("[kernel] {}x{}x{}: device {:.5f} ms (plain {:.5f}, cdist {:.5f}; {:.2f}x floor, "
+              "roofline {:.2%} of {:.2e} ms by {}) | enqueue {:.5f} ms (plain {:.5f}, cdist {:.5f}) "
+              "| host {:.2f} us (plain {:.2f}, cdist {:.2f})".format(
+                  n, m, d, kernel["device_ms"], plain["device_ms"], library["device_ms"],
+                  kernel["device_ms"] / floor["device_ms"], bound_ms / kernel["device_ms"],
+                  bound_ms, bound_by, kernel["enqueue_ms"], plain["enqueue_ms"],
+                  library["enqueue_ms"], kernel["host_us"], plain["host_us"], library["host_us"]))
+    a = torch.randn(30, 160, device=device, generator=g)
+    b = torch.randn(30, 160, device=device, generator=g)
+    ms, count = kt.profiled_ms(lambda: pairwise_sqdist(a, b), KERNEL)
+    if ms is None:
+        print("[kernel] torch.profiler at 30x30x160: no device time for {} (not measured)".format(
+            KERNEL))
+    else:
+        print("[kernel] torch.profiler at 30x30x160: {:.5f} ms a kernel over {} kernels".format(
+            ms, count))
+    return shapes, floor, ms
+
+
+def profile_sv_steps(torch, device):
+    """Phase 4's profile: the ER + ASER agent fills its buffer with task 0,
+    takes 5 warm steps of task 1, then PROFILE_STEPS steps under
+    torch.profiler, each of them on the SV paths."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from ocl_tpu_torch.config import build_parser, finalize
+    from ocl_tpu_torch.data import continuum
+    from ocl_tpu_torch.registry import agents
+    from ocl_tpu_torch.tools.kernel_timing import kernel_times
+
+    params = finalize(build_parser().parse_args(MAIN_FLAGS))
+    np.random.seed(params.seed)
+    stream = continuum(params.data, params.cl_type, params)
+    stream.new_run()
+    agent = agents["ER"](params)
+    state = agent.init_state(params.seed)
+    x, y, _ = next(stream)
+    state = agent.train_learner(state, x, y)
+    x, y, _ = next(stream)
+    ctx = agent.before_train(y)
+    warm = 5 * params.batch
+    agent.train_task(state, ctx, x[:warm], y[:warm])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        agent.train_task(state, ctx, x[warm: warm + PROFILE_STEPS * params.batch],
+                         y[warm: warm + PROFILE_STEPS * params.batch])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = kernel_times(prof)
+    k1 = [us for name, us in kernels if KERNEL in name]
+    per_step = {"k1_launches": len(k1) / PROFILE_STEPS,
+                "k1_device_ms": sum(k1) / 1e3 / PROFILE_STEPS,
+                "kernels": len(kernels) / PROFILE_STEPS,
+                "device_ms": sum(us for _, us in kernels) / 1e3 / PROFILE_STEPS,
+                "wall_ms": wall * 1e3 / PROFILE_STEPS}
+    print("[main] {} profiled SV steps: {} {:.1f} launches, {:.5f} ms device a step; all kernels "
+          "{:.0f} launches, {:.3f} ms device a step; {:.1f} ms a step on the host clock under the "
+          "profiler".format(PROFILE_STEPS, KERNEL, per_step["k1_launches"], per_step["k1_device_ms"],
+                            per_step["kernels"], per_step["device_ms"], per_step["wall_ms"]))
+    require(per_step["k1_launches"] > 0, "the profiled SV steps ran no {} kernel".format(KERNEL))
+    return per_step
 
 
 def main():
@@ -97,7 +246,7 @@ def main():
     device = torch.device("cuda")
 
     # 2. build
-    from ocl_tpu_torch.ops import _build
+    from ocl_tpu_torch.ops import _build, distance
     from ocl_tpu_torch.ops.distance import pairwise_sqdist, pairwise_sqdist_plain
 
     t0 = time.time()
@@ -106,43 +255,26 @@ def main():
     print("[build] pairwise_sqdist {} in {:.1f} s".format(so.name, time.time() - t0))
     log = so.with_suffix(".log")
     for line in (log.read_text().splitlines() if log.exists() else []):
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("[build] ptxas: " + line.strip())
+    # the plan counts its waves at distance.BLOCKS_PER_SM blocks an SM: hold
+    # that against CUDA's occupancy calculator for the kernel as built
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for vec in (4, 1):
+        plan = distance.launch_plan(210, 210, 160, vec)
+        blocks = _build.load_library("pairwise_sqdist.cu").ocl_pairwise_sqdist_blocks_per_sm(
+            distance.c_plan(210, 210, 160, vec)[1])
+        print("[build] {}-byte copies: {} blocks an SM ({} SMs); 210x210x160 is {} blocks, "
+              "{} wave(s)".format(4 * vec, blocks, sms, plan.grid, -(-plan.grid // (sms * blocks))))
+        require(blocks >= distance.BLOCKS_PER_SM and sms >= distance.SMS,
+                "the plan's {} blocks an SM on {} SMs do not hold on this card".format(
+                    distance.BLOCKS_PER_SM, distance.SMS))
 
-    # 3. kernel against plain
+    # 3. kernel against plain, then its times
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    g = torch.Generator(device=device).manual_seed(0)
-    max_abs = max_rel = 0.0
-    times = {}
-    for n, m, d in CHECK_SHAPES:
-        a = torch.randn(n, d, device=device, generator=g)
-        b = torch.randn(m, d, device=device, generator=g)
-        got = pairwise_sqdist(a, b)
-        torch.cuda.synchronize()
-        want = pairwise_sqdist_plain(a, b)
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        abs_err = err.max().item()
-        rel_err = (err / want.abs().clamp_min(torch.finfo(torch.float32).tiny)).max().item()
-        max_abs, max_rel = max(max_abs, abs_err), max(max_rel, rel_err)
-        line = "[kernel] {}x{}x{}: max_abs_err {:.3e} max_rel_err {:.3e}".format(
-            n, m, d, abs_err, rel_err)
-        if (n, m, d) in SLICE_SHAPES:
-            times[(n, m, d)] = (cuda_ms(torch, lambda: pairwise_sqdist(a, b)),
-                                cuda_ms(torch, lambda: pairwise_sqdist_plain(a, b)))
-            line += " | kernel {:.4f} ms plain {:.4f} ms".format(*times[(n, m, d)])
-        print(line)
-        require(math.isfinite(abs_err) and rel_err <= MAX_REL and abs_err <= MAX_ABS,
-                "kernel disagrees with plain at {}x{}x{}".format(n, m, d))
-    a = torch.randn(160, 30, device=device, generator=g)
-    b = torch.randn(30, 160, device=device, generator=g)
-    try:
-        pairwise_sqdist(a.t(), b)
-    except ValueError as e:
-        print("[kernel] non-contiguous input raises: {}".format(e))
-    else:
-        raise CheckFailed("a non-contiguous input did not raise")
+    max_abs = check_kernel(torch, distance, device)
+    shapes, floor, profiler_ms = time_kernel(torch, pairwise_sqdist, pairwise_sqdist_plain, device)
 
     # 4. main path: ER + ASER through the CLI
     from ocl_tpu_torch.config import build_parser
@@ -152,7 +284,7 @@ def main():
     pairwise_sqdist.launches = 0
     t0 = time.time()
     with contextlib.redirect_stdout(tee):
-        result = cli_main(build_parser().parse_args(MAIN_FLAGS + ["--verbose", "False"]))
+        result = cli_main(build_parser().parse_args(MAIN_FLAGS))
     main_s = time.time() - t0
     launches = pairwise_sqdist.launches
     avg_end_acc = float(result[0][0])
@@ -163,6 +295,7 @@ def main():
     require(launches > 0, "the main path launched no pairwise_sqdist kernel")
     require(math.isfinite(avg_end_acc) and avg_end_acc > 0.5,
             "Avg_End_Acc {} is not above 0.5".format(avg_end_acc))
+    per_step = profile_sv_steps(torch, device)
 
     # 5. default ER (random update + retrieval, two-pass), one task
     import numpy as np
@@ -171,8 +304,7 @@ def main():
     from ocl_tpu_torch.data import continuum, prepare_test_loaders
     from ocl_tpu_torch.registry import agents
 
-    flags = MAIN_FLAGS + ["--update", "random", "--retrieve", "random",
-                          "--fused_replay", "False", "--verbose", "False"]
+    flags = MAIN_FLAGS + ["--update", "random", "--retrieve", "random", "--fused_replay", "False"]
     params = finalize(build_parser().parse_args(flags))
     np.random.seed(params.seed)
     stream = continuum(params.data, params.cl_type, params)
@@ -191,13 +323,20 @@ def main():
                                    (len(y) // params.batch) * params.batch / er_s))
     require(math.isfinite(acc0) and acc0 > 0.5, "ER task-0 accuracy {} is not above 0.5".format(acc0))
 
-    ms, plain_ms = times[(30, 30, 160)]
+    main_shape = shapes[0]  # 30 x 30 x 160, the update's shape on the main path
     print(json.dumps({"kernels": [{
-        "name": "pairwise_sqdist", "route": "cuda",
+        "name": KERNEL, "route": "cuda",
         "source": "ocl_tpu_torch/csrc/pairwise_sqdist.cu",
         "replaces": "ocl_tpu/ops/pallas/distance.py:26",
         "launches": launches, "max_abs_err": max_abs,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "shape": main_shape["shape"],
+        "ms": main_shape["device_ms"], "device_ms": main_shape["device_ms"],
+        "enqueue_ms": main_shape["enqueue_ms"], "host_us": main_shape["host_us"],
+        "plain_ms": main_shape["plain"]["device_ms"], "floor_ms": floor["device_ms"],
+        "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
+        "library": "torch.cdist, use_mm_for_euclid_dist (the nearest call: it returns the root)",
+        "library_ms": main_shape["library"]["device_ms"],
+        "profiler_ms": profiler_ms, "per_sv_step": per_step, "shapes": shapes}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -25,11 +25,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # source file -> {C entry: (argtypes, restype)}
 LIBRARIES = {
+    # (a, b, out, launch plan: ops/distance.py::CPlan, stream)
     "pairwise_sqdist.cu": {
         "ocl_pairwise_sqdist_f32": (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p],
             ctypes.c_int),
+        # (launch plan) -> blocks of its kernel one SM holds, -1 if not built
+        "ocl_pairwise_sqdist_blocks_per_sm": ([ctypes.c_void_p], ctypes.c_int),
     },
 }
 
