@@ -30,7 +30,17 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                full buffer (every step takes the SV paths) under
                torch.profiler: the kernel's device time and launches per step;
   5. er      — one task of plain ER (random update + retrieval, two-pass) on
-               the same stream; its accuracy on that task must exceed 0.5.
+               the same stream; its accuracy on that task must exceed 0.5;
+  6-12.      — the rest of the replay family through the port's agents on the
+               same stream at nf 20, each on its own line: fused ER with the
+               default flags (one task), ER + MIR (--subsample 50), ER + GSS
+               (gss_mem_strength 10, gss_batch_size 10; how many full-buffer
+               steps replaced a slot, which must be > 0), AGEM, EWC++, LwF, and
+               ER with separated_softmax, kd_trick, review_trick and ncm_trick
+               (two tasks each). Every accuracy must be finite and the latest
+               task's above 0.5; each line gives images/s, then launches and
+               device ms a step over more steps (20 fused, 5 in the others) under
+               torch.profiler, and the phase's pairwise_sqdist launches.
 Then one JSON line of kernel figures, and last the result line
 {"ok": true, "device": {...}}.
 """
@@ -63,6 +73,31 @@ MAIN_FLAGS = ["--device", "cuda", "--data", "synthetic", "--agent", "ER",
               "--nf", "20", "--num_tasks", "5", "--synthetic_size", "500",
               "--num_runs", "1", "--matmul_precision", "highest", "--verbose", "False"]
 PROFILE_STEPS = 20
+# phases 6-12: (tag, label, flags over plain ER's, tasks, profiled steps).
+# Reading a trace back takes time in proportion to its events, thousands a
+# step, so phases 7-12 profile fewer steps than the fused schedule's
+# PROFILE_STEPS.
+ER_FLAGS = MAIN_FLAGS + ["--update", "random", "--retrieve", "random"]
+FAMILY_PROFILE_STEPS = 5
+FAMILY = [
+    ("fused", "ER, fused schedule (default flags)", [], 1, PROFILE_STEPS),
+    ("mir", "ER + MIR", ["--retrieve", "MIR", "--subsample", "50"], 2, FAMILY_PROFILE_STEPS),
+    ("gss", "ER + GSS", ["--update", "GSS", "--gss_mem_strength", "10",
+                         "--gss_batch_size", "10"], 2, FAMILY_PROFILE_STEPS),
+    ("agem", "AGEM", ["--agent", "AGEM"], 2, FAMILY_PROFILE_STEPS),
+    # lambda 100 at lr 0.01, a point of config/agent/ewc/ewc_tune.yml: at lr
+    # 0.1 the penalty's step (2 lr lambda F) overshoots and both packages
+    # diverge to NaN on this stream from the second task on
+    ("ewc", "EWC++ (lr 0.01)", ["--agent", "EWC", "--learning_rate", "0.01"], 2,
+     FAMILY_PROFILE_STEPS),
+    # lr 0.01, a point of config_CVPR/agent/lwf/lwf_tune.yml: at lwf.yml's 0.1
+    # the distillation half of the loss holds the second task at or below 0.5
+    ("lwf", "LwF (lr 0.01)", ["--agent", "LWF", "--learning_rate", "0.01"], 2,
+     FAMILY_PROFILE_STEPS),
+    ("tricks", "ER + separated_softmax, kd_trick, review_trick, ncm_trick",
+     ["--separated_softmax", "True", "--kd_trick", "True", "--review_trick", "True",
+      "--ncm_trick", "True"], 2, FAMILY_PROFILE_STEPS),
+]
 
 
 class CheckFailed(RuntimeError):
@@ -231,6 +266,97 @@ def profile_sv_steps(torch, device):
     return per_step
 
 
+def profile_steps(torch, agent, state, ctx, x, y, steps):
+    """Per-step figures of `steps` steps of `agent` on (x, y) under
+    torch.profiler: kernel launches, their device ms, and host-clock ms a
+    step (with the profiler on)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ocl_tpu_torch.tools.kernel_timing import kernel_times
+
+    n = steps * agent.params.batch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        agent.train_task(state, ctx, x[:n], y[:n])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = kernel_times(prof)
+    return {"kernels": len(kernels) / steps,
+            "device_ms": sum(us for _, us in kernels) / 1e3 / steps,
+            "wall_ms": wall * 1e3 / steps}
+
+
+def count_gss_replacements(torch, agent):
+    """Wrap the GSS update so it counts the full-buffer steps that replaced a
+    slot (one host read of the buffer a step; for this check only)."""
+    counts = {"full": 0, "replaced": 0}
+    run = agent.update.run
+
+    def counted(model, buf, x, y, draws):
+        if buf.current_index < buf.mem_size:
+            return run(model, buf, x, y, draws)
+        before = buf.slot_labels.clone(), buf.slot_imgs.clone()
+        out = run(model, buf, x, y, draws)
+        counts["full"] += 1
+        counts["replaced"] += int(not (torch.equal(before[0], buf.slot_labels)
+                                       and torch.equal(before[1], buf.slot_imgs)))
+        return out
+
+    agent.update = agent.update._replace(run=counted)
+    return counts
+
+
+def run_family_phase(torch, device, tag, label, flags, n_tasks, prof_steps, pairwise_sqdist):
+    """One phase of 6-12: `n_tasks` tasks of the synthetic stream through the
+    port's agent, evaluated after each; then `prof_steps` profiled steps."""
+    import numpy as np
+
+    from ocl_tpu_torch.config import build_parser, finalize
+    from ocl_tpu_torch.data import continuum, prepare_test_loaders
+    from ocl_tpu_torch.registry import agents
+
+    params = finalize(build_parser().parse_args(ER_FLAGS + flags))
+    np.random.seed(params.seed)
+    stream = continuum(params.data, params.cl_type, params)
+    stream.new_run()
+    agent = agents[params.agent](params)
+    state = agent.init_state(params.seed)
+    gss = count_gss_replacements(torch, agent) if params.update == "GSS" else None
+    loaders = prepare_test_loaders(stream.test_data(), params, device)
+    pairwise_sqdist.launches = 0
+    accs, images, train_s = [], 0, 0.0
+    for _ in range(n_tasks):
+        x, y, _ = next(stream)
+        t0 = time.time()
+        state = agent.train_learner(state, x, y)
+        torch.cuda.synchronize()
+        train_s += time.time() - t0
+        images += (len(y) // params.batch) * params.batch
+        accs.append(agent.evaluate(state, loaders))
+    launches = pairwise_sqdist.launches
+    gss = dict(gss) if gss is not None else None   # before the profiled steps add to it
+    latest = float(accs[-1][n_tasks - 1])
+    per_step = profile_steps(torch, agent, state, agent.before_train(y), x, y, prof_steps)
+    extra = ""
+    if gss is not None:
+        extra = "; full-buffer steps {}, of which replaced a slot {}".format(
+            gss["full"], gss["replaced"])
+    print("[{}] {} nf {}, {} task(s) x {} steps: accuracy after each task on tasks 0-{} {}, "
+          "latest task {:.4f}, {:.1f} images/s{}; {} profiled steps: {:.0f} launches, {:.3f} ms "
+          "device, {:.1f} ms host clock a step; pairwise_sqdist launches {}".format(
+              tag, label, params.nf, n_tasks, images // n_tasks // params.batch, n_tasks - 1,
+              [[round(float(a), 4) for a in row[:n_tasks]] for row in accs], latest,
+              images / train_s, extra, prof_steps, per_step["kernels"],
+              per_step["device_ms"], per_step["wall_ms"], launches))
+    require(all(np.isfinite(row).all() for row in accs), "{}: a non-finite accuracy".format(tag))
+    require(latest > 0.5, "{}: latest task accuracy {} is not above 0.5".format(tag, latest))
+    if gss is not None:
+        require(gss["replaced"] > 0, "gss: no full-buffer step replaced a slot")
+    return {"images_per_s": images / train_s, "latest_acc": latest, "launches": launches,
+            **per_step, **({"gss": gss} if gss else {})}
+
+
 def main():
     import torch
 
@@ -322,6 +448,16 @@ def main():
           "{:.1f} images/s".format(len(y), sorted(int(v) for v in labels), acc0,
                                    (len(y) // params.batch) * params.batch / er_s))
     require(math.isfinite(acc0) and acc0 > 0.5, "ER task-0 accuracy {} is not above 0.5".format(acc0))
+
+    # 6-12. the rest of the replay family
+    family = {}
+    for tag, label, flags, n_tasks, prof_steps in FAMILY:
+        t0 = time.time()
+        family[tag] = run_family_phase(torch, device, tag, label, flags, n_tasks, prof_steps,
+                                       pairwise_sqdist)
+        family[tag]["phase_s"] = time.time() - t0
+    print("[family] seconds a phase: {}".format(
+        ", ".join("{} {:.1f}".format(tag, f["phase_s"]) for tag, f in family.items())))
 
     main_shape = shapes[0]  # 30 x 30 x 160, the update's shape on the main path
     print(json.dumps({"kernels": [{

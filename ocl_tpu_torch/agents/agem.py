@@ -1,0 +1,63 @@
+"""Averaged Gradient Episodic Memory (counterpart of ocl_tpu/agents/agem.py;
+reference agents/agem.py).
+
+Compute the batch gradient g and, from a retrieved memory batch, a reference
+gradient g_ref; where <g, g_ref> < 0 project g <- g - (<g, g_ref> / ||g_ref||²)
+g_ref, then step. The coefficient is a `torch.where` on the device. The
+memory pass runs from the second task on, when the buffer holds a row; a
+retrieval with no valid row folds no BN statistics and gives g_ref = 0, so
+the coefficient is 0, as ocl_tpu's `jnp.any(mem_mask)` gate has it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ocl_tpu_torch.agents.base import ContinualLearner
+from ocl_tpu_torch.agents.er import ExperienceReplay, batch_grads
+from ocl_tpu_torch.buffer import build_retrieve, build_update
+from ocl_tpu_torch.models import forward_train
+
+
+def _dot(a, b):
+    return sum((x * y).sum() for x, y in zip(a, b))
+
+
+class AGEM(ContinualLearner):
+    def __init__(self, params):
+        super().__init__(params)
+        self.retrieve = build_retrieve(self)
+        self.update = build_update(self)
+
+    draw = ExperienceReplay.draw
+
+    def loss(self, state, ctx, x, y, mask=None):
+        logits = forward_train(state.model, x, mask)
+        loss = self.criterion(logits, y, ctx, mask)
+        return self.maybe_kd_blend(loss, logits, x, ctx, state.agent, mask), logits
+
+    def step(self, state, ctx, xb, yb, draws=None):
+        model, opt, buf = state.model, state.optimizer, state.buffer
+        if draws is None:
+            draws = self.draw(state.generator, xb.shape[0])
+        params = list(model.parameters())
+        for ret_draws in draws["retrieve"]:
+            opt.zero_grad()
+            loss_b, logits = self.loss(state, ctx, xb, yb)
+            loss_b.backward()
+            acc_b = (logits.argmax(1) == yb).float().mean()
+            mem_x, mem_y, mem_mask = self.retrieve.run(model, buf, xb, yb, ret_draws,
+                                                       grads=batch_grads(model))
+            if ctx.task_seen > 0 and buf.current_index > 0:
+                g = [p.grad for p in params]
+                opt.zero_grad()
+                self.loss(state, ctx, mem_x, mem_y, mem_mask)[0].backward()
+                g_ref = [p.grad for p in params]
+                prod = _dot(g, g_ref)
+                coef = torch.where(prod < 0, prod / torch.clamp(_dot(g_ref, g_ref), min=1e-12),
+                                   0.0)
+                for p, gi, ri in zip(params, g, g_ref):
+                    p.grad = gi - coef * ri
+            opt.step()
+        self.update.run(model, buf, xb, yb, draws["update"])
+        return loss_b.detach(), acc_b

@@ -1,5 +1,5 @@
-"""Agent base: train state, plain-CE criterion, batching, softmax evaluation
-(counterpart of the slice of ocl_tpu/agents/base.py that ER needs).
+"""Agent base: train state, trick-aware criterion, batching, evaluation
+(counterpart of ocl_tpu/agents/base.py).
 
 ocl_tpu runs each task as one jitted `lax.scan`; here each step runs from
 Python on the device's stream, and the host reads results back once per task
@@ -8,16 +8,29 @@ Python on the device's stream, and the host reads results back once per task
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
 
-from ocl_tpu_torch.buffer.state import BufferState, init_buffer
-from ocl_tpu_torch.config import DEFAULT_TRICK, n_classes_match
-from ocl_tpu_torch.models import forward_eval, setup_architecture
+from ocl_tpu_torch.agents import review
+from ocl_tpu_torch.buffer.state import BufferState, init_buffer, valid_mask
+from ocl_tpu_torch.config import n_classes_match
+from ocl_tpu_torch.models import (
+    feature_dim_for,
+    features_eval,
+    forward_eval,
+    forward_teacher,
+    forward_train,
+    setup_architecture,
+    snapshot,
+)
 from ocl_tpu_torch.ops import losses
 from ocl_tpu_torch.optim import setup_opt
+
+NCM_CHUNK = 256  # buffer rows per exemplar-feature forward in NCM eval
 
 
 @dataclass
@@ -35,6 +48,10 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     buffer: BufferState | None
     generator: torch.Generator  # on the device; every random draw of a run
+    # agent-specific state, or None: the distillation teacher ("teacher", a
+    # frozen model copy, and "has_teacher", a 0/1 float tensor) and EWC's
+    # parameter-shaped dicts (agents/ewc_pp.py)
+    agent: Any = None
 
 
 class ContinualLearner:
@@ -43,38 +60,54 @@ class ContinualLearner:
     uses_buffer = True
 
     def __init__(self, params):
-        tricks = [k for k in DEFAULT_TRICK if params.trick.get(k)]
-        if tricks:
-            raise NotImplementedError("tricks {} are not ported yet".format(tricks))
         if getattr(params, "error_analysis", False):
             raise NotImplementedError("--error_analysis is not ported yet")
         self.params = params
         self.data = params.data
         self.device = torch.device(params.device)
         self.n_classes = n_classes_match[params.data]
+        self.trick = params.trick
+        self.needs_kd = bool(self.trick.get("kd_trick") or self.trick.get("kd_trick_star")
+                             or params.agent == "LWF")
+        self.ncm_classify = bool(self.trick.get("ncm_trick"))
         self.old_labels: list = []
         self.new_labels: list = []
+        self.new_labels_zombie: list = []
+        self.class_task_map: dict = {}
         self.task_seen = 0
         self.verbose = params.verbose
 
     # ---------------------------------------------------------------- state
 
     def init_state(self, seed: int) -> TrainState:
-        """Fresh model, optimizer, buffer and generator for one run. The
-        weights come from a CPU generator, so a seed gives the same weights
-        on every device; the run's draws come from a generator on the device."""
+        """Fresh model, optimizer, buffer, agent state and generator for one
+        run. The weights come from a CPU generator, so a seed gives the same
+        weights on every device; the run's draws come from a generator on the
+        device. The two take distinct seeds spawned from `seed` (ocl_tpu
+        splits its key in two): on the CPU, two generators with one seed
+        would draw the same numbers for the weights and for the run."""
         p = self.params
-        model = setup_architecture(p, torch.Generator().manual_seed(seed), self.device)
+        weights_seed, draws_seed = (int(s) for s in np.random.SeedSequence(seed).generate_state(2))
+        model = setup_architecture(p, torch.Generator().manual_seed(weights_seed), self.device)
         opt = setup_opt(p.optimizer, model.parameters(), p.learning_rate, p.weight_decay)
         buffer = init_buffer(p.mem_size, self.data, self.device) if self.uses_buffer else None
-        generator = torch.Generator(device=self.device).manual_seed(seed)
+        generator = torch.Generator(device=self.device).manual_seed(draws_seed)
         self.old_labels, self.new_labels, self.task_seen = [], [], 0
-        return TrainState(model=model, optimizer=opt, buffer=buffer, generator=generator)
+        return TrainState(model=model, optimizer=opt, buffer=buffer, generator=generator,
+                          agent=self.init_agent_state(model))
+
+    def init_agent_state(self, model):
+        if self.needs_kd:
+            return {"teacher": snapshot(model),
+                    "has_teacher": torch.zeros((), device=self.device)}
+        return None
 
     # ------------------------------------------------------- label tracking
 
     def before_train(self, y_train) -> TaskCtx:
         self.new_labels = sorted(set(int(v) for v in np.asarray(y_train).reshape(-1)))
+        for lbl in self.new_labels:
+            self.class_task_map[lbl] = self.task_seen
         old_mask = torch.zeros(self.n_classes, dtype=torch.bool)
         old_mask[self.old_labels] = True
         new_mask = torch.zeros(self.n_classes, dtype=torch.bool)
@@ -84,15 +117,42 @@ class ContinualLearner:
 
     def after_train(self, state: TrainState, ctx: TaskCtx) -> TrainState:
         self.old_labels += [l for l in self.new_labels if l not in self.old_labels]
+        self.new_labels_zombie = list(self.new_labels)
         self.new_labels = []
         self.task_seen += 1
+        if self.trick.get("review_trick") and self.uses_buffer:
+            review.review_pass(self, state, ctx)
+        if self.needs_kd:
+            state.agent["teacher"].load_state_dict(state.model.state_dict())
+            state.agent["has_teacher"].fill_(1.0)
         return state
 
     # ------------------------------------------------------------ criterion
 
     def criterion(self, logits, labels, ctx: TaskCtx, mask=None):
-        """Plain mean CE over the valid rows (the trick losses come later)."""
+        """Trick-aware loss (reference agents/base.py:93-113)."""
+        if self.trick.get("labels_trick"):
+            return losses.labels_trick_ce(logits, labels, mask=mask)
+        if self.trick.get("separated_softmax"):
+            return losses.separated_softmax_ce(logits, labels, ctx.old_mask, ctx.new_mask,
+                                               mask=mask)
         return losses.cross_entropy(logits, labels, mask=mask)
+
+    def maybe_kd_blend(self, loss, logits, x, ctx: TaskCtx, agent_state, mask=None):
+        """kd_trick (weight 1/t) and kd_trick_star (1/sqrt(t)) blending with
+        the previous task's model, t = tasks seen + 1 (reference
+        agents/exp_replay.py:42-47). The weights are fp32, as ocl_tpu's."""
+        if not (self.trick.get("kd_trick") or self.trick.get("kd_trick_star")):
+            return loss
+        teacher_logits = forward_teacher(agent_state["teacher"], x, w=mask)
+        kd = losses.kd_loss(logits, teacher_logits, mask=mask) * agent_state["has_teacher"]
+        t = np.float32(ctx.task_seen + 1)
+        w = float(np.float32(1.0) / (t if self.trick.get("kd_trick") else np.sqrt(t)))
+        return w * loss + (1.0 - w) * kd
+
+    def review_loss(self, model, xb, yb, ctx):
+        """The loss of one review_trick batch (agents/review.py)."""
+        return self.criterion(forward_train(model, xb), yb, ctx)
 
     # ------------------------------------------------------------- training
 
@@ -144,18 +204,22 @@ class ContinualLearner:
     # ------------------------------------------------------------- evaluate
 
     def evaluate(self, state: TrainState, test_loaders):
-        """Softmax accuracy on every task's test set (counterpart of
-        ocl_tpu/agents/base.py:284-335).
+        """Accuracy on every task's test set: softmax, or nearest class mean
+        with ncm_trick (counterpart of ocl_tpu/agents/base.py:284-335).
 
         test_loaders: list of (x [nb, B, H, W, C], y [nb, B], mask [nb, B])
         tensors on the device (see data.prepare_test_loaders).
         """
+        if self.ncm_classify:
+            return self._evaluate_ncm(state, test_loaders)
+        return self._accuracies(test_loaders, lambda xb: forward_eval(state.model, xb).argmax(1))
+
+    def _accuracies(self, test_loaders, predict):
         correct, total = [], []
         for x, y, m in test_loaders:
             c = torch.zeros((), dtype=torch.int64, device=self.device)
             for xb, yb, mb in zip(x, y, m):
-                pred = forward_eval(state.model, xb).argmax(1)
-                c = c + ((pred == yb) & mb).sum()
+                c = c + ((predict(xb) == yb) & mb).sum()
             correct.append(c)
             total.append(m.sum())
         correct = torch.stack(correct).cpu().numpy()
@@ -164,3 +228,43 @@ class ContinualLearner:
         if self.verbose:
             print(accs)
         return accs
+
+    def ncm_means(self, state: TrainState, noise=None):
+        """[n_classes, D] unit class means of the buffer's exemplar features
+        (eval mode, chunks of NCM_CHUNK rows, each feature L2-normalised). A
+        class with no exemplar gets a normal-noise mean from the run's
+        generator (`noise` [n_classes, D] replaces the draw); with
+        --abl_ncm_zero_empty it gets 1e6 in every entry, out of reach."""
+        buf = state.buffer
+        feats = torch.cat([features_eval(state.model, c) for c in buf.imgs.split(NCM_CHUNK)])
+        feats = feats / torch.clamp(feats.norm(dim=1, keepdim=True), min=1e-12)
+        w = valid_mask(buf).float()
+        sums = torch.zeros(self.n_classes, feats.shape[1], device=self.device)
+        sums.index_add_(0, buf.labels, feats * w[:, None])
+        cnts = torch.zeros(self.n_classes, device=self.device).index_add_(0, buf.labels, w)
+        if noise is None:
+            noise = torch.randn(self.n_classes, feature_dim_for(self.data, self.params.nf),
+                                generator=state.generator, device=self.device)
+        has = (cnts > 0)[:, None]
+        means = torch.where(has, sums / torch.clamp(cnts, min=1.0)[:, None], noise)
+        means = means / torch.clamp(means.norm(dim=1, keepdim=True), min=1e-12)
+        if getattr(self.params, "abl_ncm_zero_empty", False):
+            means = torch.where(has, means, 1e6)
+        return means
+
+    def _evaluate_ncm(self, state: TrainState, test_loaders, noise=None):
+        """Nearest-class-mean accuracy over the classes seen so far
+        (counterpart of ocl_tpu/agents/base.py:429-543): argmin of the
+        broadcast squared distance between a test feature and the means."""
+        means = self.ncm_means(state, noise)
+        seen = torch.zeros(self.n_classes, dtype=torch.bool)
+        seen[self.old_labels] = True
+        seen = seen.to(self.device)
+
+        def predict(xb):
+            f = features_eval(state.model, xb)
+            f = f / torch.clamp(f.norm(dim=1, keepdim=True), min=1e-12)
+            d = (f[:, None, :] - means[None, :, :]).square().sum(-1)
+            return torch.where(seen[None, :], d, math.inf).argmin(1)
+
+        return self._accuracies(test_loaders, predict)

@@ -1,0 +1,84 @@
+"""Online EWC, EWC++ (counterpart of ocl_tpu/agents/ewc_pp.py; reference
+agents/ewc_pp.py). No buffer.
+
+Every step adds the squared gradients of the full loss (penalty and
+distillation included) to a temporary Fisher; before every
+`fisher_update_after`-th step of a task (1-based) the temporary Fisher folds
+into the running one, F <- (1 - alpha) F + (alpha / fua) T, and resets. The
+loss adds lambda * sum(F_norm (theta - theta*)²) once a task has ended. After
+each task the running Fisher is min-max normalised with one global min and
+max, and the parameters are kept as theta*.
+
+Agent state: "prev_params", "running_fisher", "tmp_fisher" and
+"normalized_fisher" are dicts by parameter name, "has_prev" a 0/1 float
+tensor, "step_in_task" a Python int. ocl_tpu's stacked-state hooks for the
+tuner (ewc_pp.py:137-172) are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ocl_tpu_torch.agents.base import ContinualLearner
+from ocl_tpu_torch.models import forward_train
+
+
+class EWC_pp(ContinualLearner):
+    uses_buffer = False
+
+    def __init__(self, params):
+        super().__init__(params)
+        self.lambda_ = float(params.lambda_)
+        self.alpha = float(params.alpha)
+        self.fua = int(params.fisher_update_after)
+
+    def init_agent_state(self, model):
+        def zeros():
+            return {n: torch.zeros_like(p) for n, p in model.named_parameters()}
+
+        ag = {"prev_params": {n: p.detach().clone() for n, p in model.named_parameters()},
+              "has_prev": torch.zeros((), device=self.device),
+              "running_fisher": zeros(), "tmp_fisher": zeros(), "normalized_fisher": zeros(),
+              "step_in_task": 0}
+        ag.update(super().init_agent_state(model) or {})
+        return ag
+
+    def step(self, state, ctx, xb, yb, draws=None):
+        model, opt, ag = state.model, state.optimizer, state.agent
+        if (ag["step_in_task"] + 1) % self.fua == 0:
+            with torch.no_grad():
+                for n, r in ag["running_fisher"].items():
+                    r.copy_((1.0 - self.alpha) * r + (self.alpha / self.fua) * ag["tmp_fisher"][n])
+                    ag["tmp_fisher"][n].zero_()
+
+        opt.zero_grad()
+        logits = forward_train(model, xb)
+        loss = self.criterion(logits, yb, ctx)
+        reg = sum((ag["normalized_fisher"][n] * (p - ag["prev_params"][n]).square()).sum()
+                  for n, p in model.named_parameters())
+        loss = loss + self.lambda_ * reg * ag["has_prev"]
+        loss = self.maybe_kd_blend(loss, logits, xb, ctx, ag)
+        loss.backward()
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                ag["tmp_fisher"][n].add_(p.grad.square())
+        ag["step_in_task"] += 1
+        opt.step()
+        return loss.detach(), (logits.argmax(1) == yb).float().mean()
+
+    def train_task(self, state, ctx, x_train, y_train):
+        state.agent["step_in_task"] = 0
+        return super().train_task(state, ctx, x_train, y_train)
+
+    def after_train(self, state, ctx):
+        ag = state.agent
+        with torch.no_grad():
+            running = list(ag["running_fisher"].values())
+            mx = torch.stack([f.max() for f in running]).max()
+            mn = torch.stack([f.min() for f in running]).min()
+            for n, f in ag["running_fisher"].items():
+                ag["normalized_fisher"][n].copy_((f - mn) / (mx - mn + 1e-32))
+            for n, p in state.model.named_parameters():
+                ag["prev_params"][n].copy_(p)
+            ag["has_prev"].fill_(1.0)
+        return super().after_train(state, ctx)

@@ -1,0 +1,32 @@
+"""Learning without Forgetting (counterpart of ocl_tpu/agents/lwf.py;
+reference agents/lwf.py). No buffer.
+
+loss = (1/t) CE + (1 - 1/t) KD, t = tasks seen + 1, against the previous
+task's model as teacher (the frozen copy in the agent state, normalising
+with the batch's statistics as the reference's never-switched-to-eval
+teacher does, kd_manager.py:22-25); KD counts once a task has ended.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ocl_tpu_torch.agents.base import ContinualLearner
+from ocl_tpu_torch.models import forward_teacher, forward_train
+from ocl_tpu_torch.ops.losses import kd_loss
+
+
+class Lwf(ContinualLearner):
+    uses_buffer = False
+
+    def step(self, state, ctx, xb, yb, draws=None):
+        model, opt, ag = state.model, state.optimizer, state.agent
+        opt.zero_grad()
+        logits = forward_train(model, xb)
+        loss_new = self.criterion(logits, yb, ctx)
+        loss_old = kd_loss(logits, forward_teacher(ag["teacher"], xb)) * ag["has_teacher"]
+        w = float(np.float32(1.0) / np.float32(ctx.task_seen + 1))
+        loss = w * loss_new + (1.0 - w) * loss_old
+        loss.backward()
+        opt.step()
+        return loss.detach(), (logits.argmax(1) == yb).float().mean()

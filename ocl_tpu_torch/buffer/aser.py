@@ -180,7 +180,7 @@ def build_aser_retrieve(agent) -> Strategy:
         mask = torch.arange(num_retrieve, device=x.device) < n_valid
         return cand_x[top], cand_y[top], mask
 
-    def retrieve(model, buf, x, y, draws):
+    def retrieve(model, buf, x, y, draws, grads=None):
         if buf.n_seen_so_far <= mem_size:
             mx, my, _, mask = random_retrieve(buf, num_retrieve, draws["rand"])
             return mx, my, mask

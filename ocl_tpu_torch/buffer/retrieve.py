@@ -12,8 +12,7 @@ from __future__ import annotations
 import torch
 
 from ocl_tpu_torch.buffer.state import BufferState, valid_mask
-
-NEG_INF = -1e30
+from ocl_tpu_torch.ops.losses import NEG_INF
 
 
 def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:

@@ -6,10 +6,10 @@ Python ints: they depend only on batch counts, so branching on them costs no
 device sync. Per-class counts are a device tensor kept up to date by
 `write_slots`.
 
-The image and label tensors hold one extra row past `mem_size`. A write that
-is masked off is sent there instead of being dropped (JAX's scatter
-mode="drop"), so a masked write needs no host-side compaction; the row is
-never read.
+The image, label and score tensors hold one extra row past `mem_size`. A
+write that is masked off is sent there instead of being dropped (JAX's
+scatter mode="drop"), so a masked write needs no host-side compaction; the
+row is never read.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from ocl_tpu_torch.config import input_size_match, n_classes_match
 class BufferState:
     slot_imgs: torch.Tensor     # [mem_size + 1, H, W, C] float32; last row is scratch
     slot_labels: torch.Tensor   # [mem_size + 1] int64; last row is scratch
+    slot_score: torch.Tensor    # [mem_size + 1] float32 GSS score; last row is scratch
     class_counts: torch.Tensor  # [n_classes] int64 counts of labels in filled slots
     current_index: int = 0      # slots filled (prefix property)
     n_seen_so_far: int = 0
@@ -41,12 +42,17 @@ class BufferState:
     def labels(self) -> torch.Tensor:
         return self.slot_labels[:-1]
 
+    @property
+    def score(self) -> torch.Tensor:
+        return self.slot_score[:-1]
+
 
 def init_buffer(mem_size: int, data: str, device) -> BufferState:
     shape = tuple(input_size_match[data])
     return BufferState(
         slot_imgs=torch.zeros((mem_size + 1,) + shape, device=device),
         slot_labels=torch.zeros((mem_size + 1,), dtype=torch.int64, device=device),
+        slot_score=torch.zeros((mem_size + 1,), device=device),
         class_counts=torch.zeros((n_classes_match[data],), dtype=torch.int64, device=device),
     )
 

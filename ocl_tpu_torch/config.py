@@ -156,9 +156,8 @@ def build_parser() -> argparse.ArgumentParser:
                         type=boolean_string,
                         help="ER with random/match retrieval: one fused "
                              "forward/backward over batch+memory (the ocl_tpu "
-                             "default). The port has only the reference's "
-                             "two-pass schedule so far and refuses the fused "
-                             "one: pass False with random retrieval")
+                             "default); False runs the reference's two-pass "
+                             "schedule")
     parser.add_argument("--scr_review_dead_forward",
                         dest="scr_review_dead_forward", default=True,
                         type=boolean_string,

@@ -12,12 +12,22 @@ that flattens NCHW (the original reference) orders features (C, h, w)
 instead; at 32x32 the trunk pools to one cell and the two orders agree, but
 an 84- or 128-pixel input pools to 2x2 / 4x4 cells, and weights from such a
 model need their input columns permuted from (C, h, w) to (h, w, C).
+
+`agent_from_jax` / `agent_to_jax` carry an agent's state (the distillation
+teacher, EWC's parameter-shaped trees and flags), and `adam_from_jax` /
+`adam_to_jax` carry Adam's moments and step count, between optax's
+`ScaleByAdamState` (count, mu, nu) and torch.optim.Adam's per-parameter
+`step`, `exp_avg`, `exp_avg_sq`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+# EWC's parameter-shaped trees in ocl_tpu's agent state
+_PARAM_TREES = ("prev_params", "running_fisher", "tmp_fisher", "normalized_fisher")
+_FLAGS = ("has_teacher", "has_prev")
 
 # JAX submodule of a stage block <-> port attribute
 _BLOCK_MODS = {"Conv3x3_0": "conv1", "Conv3x3_1": "conv2", "Conv1x1_0": "short_conv",
@@ -106,3 +116,63 @@ def to_jax(state_dict) -> tuple[dict, dict]:
             node = node.setdefault(p, {})
         node[path[-1]] = _to_numpy(value, kind)
     return out["params"], out["stats"]
+
+
+def agent_from_jax(ag, model) -> dict:
+    """ocl_tpu agent pytree (numpy leaves) -> the port's agent state for
+    `model`: a frozen teacher copy of `model` with the teacher's weights and
+    statistics, EWC's trees as dicts by parameter name, flags as 0-d float
+    tensors, `step_in_task` as an int."""
+    from ocl_tpu_torch.models import snapshot
+
+    device = next(model.parameters()).device
+    out = {}
+    if "teacher_params" in ag:
+        teacher = snapshot(model)
+        teacher.load_state_dict(from_jax(ag["teacher_params"], ag["teacher_stats"]))
+        out["teacher"] = teacher
+    for name in _PARAM_TREES:
+        if name in ag:
+            out[name] = {k: v.to(device) for k, v in from_jax(ag[name], {}).items()}
+    for name in _FLAGS:
+        if name in ag:
+            out[name] = torch.tensor(float(np.asarray(ag[name])), device=device)
+    if "step_in_task" in ag:
+        out["step_in_task"] = int(np.asarray(ag["step_in_task"]))
+    return out
+
+
+def agent_to_jax(agent) -> dict:
+    """The port's agent state -> ocl_tpu's agent pytree of numpy arrays."""
+    out = {}
+    if "teacher" in agent:
+        out["teacher_params"], out["teacher_stats"] = to_jax(agent["teacher"].state_dict())
+    for name in _PARAM_TREES:
+        if name in agent:
+            out[name] = to_jax(agent[name])[0]
+    for name in _FLAGS:
+        if name in agent:
+            out[name] = np.float32(agent[name].item())
+    if "step_in_task" in agent:
+        out["step_in_task"] = np.int32(agent["step_in_task"])
+    return out
+
+
+def adam_from_jax(count, mu, nu, optimizer, model) -> None:
+    """Set torch Adam's state for `model`'s parameters from optax's
+    ScaleByAdamState fields (count [], mu and nu params-shaped trees)."""
+    mu, nu = from_jax(mu, {}), from_jax(nu, {})
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {"step": torch.tensor(float(np.asarray(count))),
+                              "exp_avg": mu[name].to(p.device),
+                              "exp_avg_sq": nu[name].to(p.device)}
+
+
+def adam_to_jax(optimizer, model) -> dict:
+    """torch Adam's state -> {"count", "mu", "nu"} as optax's
+    ScaleByAdamState holds them (numpy leaves)."""
+    named = list(model.named_parameters())
+    states = [optimizer.state[p] for _, p in named]
+    return {"count": np.int32(int(states[0]["step"])),
+            "mu": to_jax({n: s["exp_avg"] for (n, _), s in zip(named, states)})[0],
+            "nu": to_jax({n: s["exp_avg_sq"] for (n, _), s in zip(named, states)})[0]}

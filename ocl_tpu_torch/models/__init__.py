@@ -4,10 +4,14 @@
 package's pure `forward_train(module, params, stats, x, w)` becomes
 `forward_train(model, x, w)`: the model holds its parameters, and the
 train-mode forward folds the batch's BN statistics into the model's running
-buffers in place.
+buffers in place. A distillation teacher is a frozen copy of the model
+(`snapshot`), and `functional_forward` runs the model on other tensors
+(MIR's virtual step, GSS's per-sample gradients through `torch.func`).
 """
 
 from __future__ import annotations
+
+import copy
 
 import torch
 
@@ -58,3 +62,35 @@ def features_eval(model, x):
     """Deep features in eval mode (BN running stats, no mutation)."""
     return model.features(x, train=False)
 
+
+def features_train(model, x, w=None):
+    """Deep features in train mode; folds the batch's BN statistics."""
+    return model.features(x, train=True, w=w)
+
+
+def functional_forward(model, tensors, x, train=False, w=None, fold=True):
+    """`model`'s forward with `tensors` (parameters and buffers by name, any
+    subset) in place of its own, through `torch.func.functional_call`, so
+    `torch.func.grad`, `vmap` and `jvp` can differentiate with respect to
+    them. Eval or train mode; gradients flow when enabled. A train-mode fold
+    lands in the buffers that `tensors` supplies, else in the model's own;
+    `fold=False` makes none."""
+    return torch.func.functional_call(model, tensors, (x,),
+                                      {"train": train, "w": w, "fold": fold})
+
+
+def snapshot(model):
+    """A frozen copy of `model` (weights and BN statistics), for distillation."""
+    teacher = copy.deepcopy(model)
+    teacher.requires_grad_(False)
+    return teacher
+
+
+@torch.no_grad()
+def forward_teacher(teacher, x, w=None):
+    """Teacher / previous-model logits for distillation (counterpart of
+    ocl_tpu/models/__init__.py:92-103): the reference never switches its
+    teacher to eval, so BN normalises with the batch's own statistics (rows
+    where `w`); the teacher's running statistics stay as they are and no
+    gradient flows."""
+    return teacher(x, train=True, w=w, fold=False)

@@ -23,6 +23,14 @@ class BatchNorm(nn.Module):
     (fixed-shape memory batches carry validity masks), so n = sum(w) * H * W.
     Statistics are computed in fp32. nn.BatchNorm2d cannot drop masked rows,
     hence plain tensor code.
+
+    A batch whose `w` is all zero stands for no batch at all (ocl_tpu skips
+    such a pass with `lax.cond`): it folds nothing into the running
+    statistics and normalises with them, so its outputs stay finite and a
+    masked loss over them has zero gradients. The test is a `torch.where`,
+    not a host branch. `fold=False` normalises with the batch's statistics
+    but leaves the running ones alone (a distillation teacher, MIR's scoring
+    forward on virtual weights).
     """
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
@@ -34,10 +42,11 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x, train: bool, w=None):
+    def forward(self, x, train: bool, w=None, fold: bool = True):
         xf = x.float()
         if train:
             dims = (0, 2, 3)
+            empty = None
             if w is None:
                 n = float(x.numel() // x.shape[1])
                 mean = xf.mean(dims)
@@ -45,17 +54,28 @@ class BatchNorm(nn.Module):
             else:
                 spatial = x.shape[2] * x.shape[3]
                 wf = w.float().reshape(-1, 1, 1, 1)
-                n = torch.clamp(wf.sum() * spatial, min=1.0)
+                rows = wf.sum()
+                empty = rows == 0
+                n = torch.clamp(rows * spatial, min=1.0)
                 mean = (xf * wf).sum(dims) / n
                 var = ((xf - mean[:, None, None]).square() * wf).sum(dims) / n
-            with torch.no_grad():
-                if w is None:
-                    unbiased = var * (n / max(n - 1.0, 1.0))
-                else:
-                    unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
-                m = self.momentum
-                self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
-                self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
+            if fold:
+                with torch.no_grad():
+                    if w is None:
+                        unbiased = var * (n / max(n - 1.0, 1.0))
+                    else:
+                        unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
+                    m = self.momentum
+                    new_mean = (1.0 - m) * self.running_mean + m * mean
+                    new_var = (1.0 - m) * self.running_var + m * unbiased
+                    if empty is not None:
+                        new_mean = torch.where(empty, self.running_mean, new_mean)
+                        new_var = torch.where(empty, self.running_var, new_var)
+                    self.running_mean.copy_(new_mean)
+                    self.running_var.copy_(new_var)
+            if empty is not None:
+                mean = torch.where(empty, self.running_mean, mean)
+                var = torch.where(empty, self.running_var, var)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight.float()

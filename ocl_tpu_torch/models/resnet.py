@@ -33,11 +33,11 @@ class BasicBlock(nn.Module):
             self.short_conv = Conv1x1(in_planes, self.expansion * planes, stride)
             self.short_bn = BatchNorm(self.expansion * planes)
 
-    def forward(self, x, train: bool, w=None):
-        out = F.relu(self.bn1(self.conv1(x), train, w))
-        out = self.bn2(self.conv2(out), train, w)
+    def forward(self, x, train: bool, w=None, fold: bool = True):
+        out = F.relu(self.bn1(self.conv1(x), train, w, fold))
+        out = self.bn2(self.conv2(out), train, w, fold)
         if self.has_shortcut:
-            x = self.short_bn(self.short_conv(x), train, w)
+            x = self.short_bn(self.short_conv(x), train, w, fold)
         return F.relu(out + x)
 
 
@@ -63,22 +63,22 @@ class ResNet(nn.Module):
         self.stages = nn.ModuleList(stages)
         self.linear = TorchLinear(feature_dim or in_planes, num_classes, bias=bias)
 
-    def features(self, x, train: bool = False, w=None):
+    def features(self, x, train: bool = False, w=None, fold: bool = True):
         # NHWC -> contiguous NCHW. The permuted view alone (channels_last
         # memory) crashes the CPU conv backward of PyTorch 2.13 in this trunk.
         out = x.permute(0, 3, 1, 2).contiguous()
-        out = F.relu(self.bn1(self.conv1(out), train, w))
+        out = F.relu(self.bn1(self.conv1(out), train, w, fold))
         for stage in self.stages:
             for blk in stage:
-                out = blk(out, train, w)
+                out = blk(out, train, w, fold)
         out = avg_pool(out, self.pool_window)
         return out.permute(0, 2, 3, 1).reshape(out.shape[0], -1)
 
     def logits(self, feats):
         return self.linear(feats)
 
-    def forward(self, x, train: bool = False, w=None):
-        return self.logits(self.features(x, train, w))
+    def forward(self, x, train: bool = False, w=None, fold: bool = True):
+        return self.logits(self.features(x, train, w, fold))
 
 
 def Reduced_ResNet18(nclasses, nf=20, bias=True, feature_dim=None):

@@ -1,7 +1,8 @@
 """Name registries of the port (counterpart of ocl_tpu/registry.py).
 
 Entries resolve lazily, as in the JAX registry. Only the names the port has
-so far are registered; the runner names what is missing.
+so far are registered; the runner names what is missing (ICARL, GDUMB, SCR,
+CNDPM).
 """
 
 from __future__ import annotations
@@ -23,4 +24,7 @@ data_objects = {
 
 agents = {
     "ER": _lazy("ocl_tpu_torch.agents.er", "ExperienceReplay"),
+    "AGEM": _lazy("ocl_tpu_torch.agents.agem", "AGEM"),
+    "EWC": _lazy("ocl_tpu_torch.agents.ewc_pp", "EWC_pp"),
+    "LWF": _lazy("ocl_tpu_torch.agents.lwf", "Lwf"),
 }

@@ -26,9 +26,10 @@ def class_images(labels, g):
     return np.clip(x, 0, 1).astype(np.float32)
 
 
-def make_buffers(mem, fill, n_seen, seed, data="synthetic", labels=None):
+def make_buffers(mem, fill, n_seen, seed, data="synthetic", labels=None, score=None):
     """(ocl_tpu BufferState, port BufferState) holding the same images and
-    labels (random unless given) in the first `fill` slots."""
+    labels (random unless given) in the first `fill` slots, and the same GSS
+    `score` [mem] (zeros unless given)."""
     g = np.random.RandomState(seed)
     imgs = np.zeros((mem, 32, 32, 3), np.float32)
     if labels is None:
@@ -36,15 +37,17 @@ def make_buffers(mem, fill, n_seen, seed, data="synthetic", labels=None):
         labels[:fill] = g.randint(0, N_CLS, fill)
     imgs[:fill] = class_images(labels[:fill], g)
     counts = np.bincount(labels[:fill], minlength=N_CLS)
+    score = np.zeros(mem, np.float32) if score is None else np.asarray(score, np.float32)
     jbuf = j_init_buffer(mem, data).replace(
         imgs=jnp.asarray(imgs), labels=jnp.asarray(labels, jnp.int32),
         current_index=jnp.asarray(fill, jnp.int32),
         n_seen_so_far=jnp.asarray(n_seen, jnp.int32),
-        class_counts=jnp.asarray(counts, jnp.int32))
+        score=jnp.asarray(score), class_counts=jnp.asarray(counts, jnp.int32))
     tbuf = init_buffer(mem, data, "cpu")
     tbuf.imgs.copy_(torch.from_numpy(imgs))
     tbuf.labels.copy_(torch.from_numpy(labels))
     tbuf.class_counts.copy_(torch.from_numpy(counts))
+    tbuf.score.copy_(torch.from_numpy(score))
     tbuf.current_index, tbuf.n_seen_so_far = fill, n_seen
     return jbuf, tbuf
 
@@ -55,6 +58,7 @@ def assert_buffers_equal(jbuf, tbuf):
     np.testing.assert_array_equal(tbuf.class_counts.numpy(), np.asarray(jbuf.class_counts))
     assert tbuf.current_index == int(jbuf.current_index)
     assert tbuf.n_seen_so_far == int(jbuf.n_seen_so_far)
+    np.testing.assert_allclose(tbuf.score.numpy(), np.asarray(jbuf.score), rtol=1e-3, atol=1e-4)
     valid = tbuf.labels[: tbuf.current_index].numpy()
     np.testing.assert_array_equal(tbuf.class_counts.numpy(), np.bincount(valid, minlength=N_CLS))
 

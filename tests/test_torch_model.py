@@ -153,3 +153,23 @@ def test_masked_ce_sgd_step(ref):
     got, _ = interop.to_jax(model.state_dict())
     for a, b in zip(_leaves(got), _leaves(want["stepped"])):
         np.testing.assert_allclose(a, b, **TOL)
+
+
+def test_all_masked_forward_folds_nothing(ref):
+    """A train-mode forward whose `w` is all False stands for no batch, as
+    ocl_tpu's lax.cond skips such a pass: the running statistics stay as
+    they were, the logits are finite, and a masked loss over them has zero
+    gradients. A partly masked forward still folds (and matches ocl_tpu in
+    test_forward_train_and_bn_stats)."""
+    module, params, stats, x, y, mask, want = ref
+    model = port_model(params, stats)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    none = torch.zeros(x.shape[0], dtype=torch.bool)
+    logits = forward_train(model, torch.from_numpy(x), none)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    assert torch.isfinite(logits).all()
+    cross_entropy(logits, torch.from_numpy(y), none).backward()
+    assert all(not p.grad.any() for p in model.parameters())
+    forward_train(model, torch.from_numpy(x), torch.from_numpy(mask))
+    assert not torch.equal(model.bn1.running_mean, before["bn1.running_mean"])
