@@ -41,6 +41,19 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                task's above 0.5; each line gives images/s, then launches and
                device ms a step over more steps (20 fused, 5 in the others) under
                torch.profiler, and the phase's pairwise_sqdist launches.
+  13-15.     — iCaRL (config/agent/icarl/icarl_1k.yml), GDumb
+               (config/agent/gdumb/gdumb_1k.yml with config/general_1_gdumb.yml:
+               batch 16, mem_epoch 30, clip 10) and SCR
+               (config_CVPR/agent/scr/scr_1k.yml: eps_mem_batch 100, temp 0.1,
+               review_trick, fused views) on the same stream at nf 20, two
+               tasks each, with the same figures and checks. GDumb also
+               prints its retrain steps/s and launches and device ms a
+               retrain step; SCR its augmentation's launches a call and the
+               review epoch's seconds;
+  16. errors — one softmax eval of phase 6's model with --error_analysis, in
+               a temporary working directory: the four counts must add up to
+               the wrong predictions on the task they cover, and the
+               `confusion` pickle must hold one label per test image.
 Then one JSON line of kernel figures, and last the result line
 {"ok": true, "device": {...}}.
 """
@@ -51,8 +64,11 @@ import contextlib
 import io
 import json
 import math
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 
 # the ASER shapes: update 30 x 30, retrieval 10 x 20 (adversarial) and
@@ -98,6 +114,16 @@ FAMILY = [
      ["--separated_softmax", "True", "--kd_trick", "True", "--review_trick", "True",
       "--ncm_trick", "True"], 2, FAMILY_PROFILE_STEPS),
 ]
+# phases 13 and 15 (as FAMILY's entries), from the agents' recipes
+ICARL = ("icarl", "iCaRL (icarl_1k)", ["--agent", "ICARL", "--eps_mem_batch", "10"], 2,
+         FAMILY_PROFILE_STEPS)
+SCR = ("scr", "SCR (scr_1k: eps_mem_batch 100, temp 0.1, review_trick, fused views)",
+       ["--agent", "SCR", "--eps_mem_batch", "100", "--temp", "0.1", "--weight_decay", "0",
+        "--review_trick", "True"], 2, FAMILY_PROFILE_STEPS)
+# phase 14: gdumb_1k with general_1_gdumb's batch
+GDUMB_FLAGS = ["--agent", "GDUMB", "--batch", "16", "--mem_epoch", "30", "--clip", "10.0",
+               "--minlr", "0.0005"]
+GDUMB_PROFILE_STEPS = 10
 
 
 class CheckFailed(RuntimeError):
@@ -307,9 +333,12 @@ def count_gss_replacements(torch, agent):
     return counts
 
 
-def run_family_phase(torch, device, tag, label, flags, n_tasks, prof_steps, pairwise_sqdist):
-    """One phase of 6-12: `n_tasks` tasks of the synthetic stream through the
-    port's agent, evaluated after each; then `prof_steps` profiled steps."""
+def run_family_phase(torch, device, tag, label, flags, n_tasks, prof_steps, pairwise_sqdist,
+                     agent_hook=None):
+    """One phase of 6-13 or 15: `n_tasks` tasks of the synthetic stream
+    through the port's agent, evaluated after each; then `prof_steps`
+    profiled steps. `agent_hook(agent)` may instrument the agent first.
+    Returns the phase's figures and (agent, state, test loaders)."""
     import numpy as np
 
     from ocl_tpu_torch.config import build_parser, finalize
@@ -323,6 +352,8 @@ def run_family_phase(torch, device, tag, label, flags, n_tasks, prof_steps, pair
     agent = agents[params.agent](params)
     state = agent.init_state(params.seed)
     gss = count_gss_replacements(torch, agent) if params.update == "GSS" else None
+    if agent_hook is not None:
+        agent_hook(agent)
     loaders = prepare_test_loaders(stream.test_data(), params, device)
     pairwise_sqdist.launches = 0
     accs, images, train_s = [], 0, 0.0
@@ -337,24 +368,177 @@ def run_family_phase(torch, device, tag, label, flags, n_tasks, prof_steps, pair
     launches = pairwise_sqdist.launches
     gss = dict(gss) if gss is not None else None   # before the profiled steps add to it
     latest = float(accs[-1][n_tasks - 1])
+    end_acc = float(np.mean(accs[-1][:n_tasks]))
     per_step = profile_steps(torch, agent, state, agent.before_train(y), x, y, prof_steps)
     extra = ""
     if gss is not None:
         extra = "; full-buffer steps {}, of which replaced a slot {}".format(
             gss["full"], gss["replaced"])
     print("[{}] {} nf {}, {} task(s) x {} steps: accuracy after each task on tasks 0-{} {}, "
-          "latest task {:.4f}, {:.1f} images/s{}; {} profiled steps: {:.0f} launches, {:.3f} ms "
-          "device, {:.1f} ms host clock a step; pairwise_sqdist launches {}".format(
+          "Avg_End_Acc over them {:.4f}, latest task {:.4f}, {:.1f} images/s{}; {} profiled "
+          "steps: {:.0f} launches, {:.3f} ms device, {:.1f} ms host clock a step; "
+          "pairwise_sqdist launches {}".format(
               tag, label, params.nf, n_tasks, images // n_tasks // params.batch, n_tasks - 1,
-              [[round(float(a), 4) for a in row[:n_tasks]] for row in accs], latest,
+              [[round(float(a), 4) for a in row[:n_tasks]] for row in accs], end_acc, latest,
               images / train_s, extra, prof_steps, per_step["kernels"],
               per_step["device_ms"], per_step["wall_ms"], launches))
     require(all(np.isfinite(row).all() for row in accs), "{}: a non-finite accuracy".format(tag))
     require(latest > 0.5, "{}: latest task accuracy {} is not above 0.5".format(tag, latest))
     if gss is not None:
         require(gss["replaced"] > 0, "gss: no full-buffer step replaced a slot")
-    return {"images_per_s": images / train_s, "latest_acc": latest, "launches": launches,
-            **per_step, **({"gss": gss} if gss else {})}
+    figures = {"images_per_s": images / train_s, "latest_acc": latest, "end_acc": end_acc,
+               "launches": launches, **per_step, **({"gss": gss} if gss else {})}
+    return figures, (agent, state, loaders)
+
+
+def run_gdumb_phase(torch, device, pairwise_sqdist):
+    """Phase 14: two tasks of GDumb; the retrain at each task's end is timed
+    (host clock, synced), then GDUMB_PROFILE_STEPS retrain steps on the last
+    memory run under torch.profiler."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from ocl_tpu_torch.config import build_parser, finalize
+    from ocl_tpu_torch.data import continuum, prepare_test_loaders
+    from ocl_tpu_torch.registry import agents
+    from ocl_tpu_torch.tools.kernel_timing import kernel_times
+
+    params = finalize(build_parser().parse_args(ER_FLAGS + GDUMB_FLAGS))
+    np.random.seed(params.seed)
+    stream = continuum(params.data, params.cl_type, params)
+    stream.new_run()
+    agent = agents["GDUMB"](params)
+    state = agent.init_state(params.seed)
+    loaders = prepare_test_loaders(stream.test_data(), params, device)
+    retrain = agent.retrain
+    timed = {"steps": 0, "s": 0.0}
+
+    def timed_retrain(state, ctx, mem_x, mem_y, idx):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = retrain(state, ctx, mem_x, mem_y, idx)
+        torch.cuda.synchronize()
+        timed["s"] += time.perf_counter() - t0
+        timed["steps"] += len(idx)
+        timed["last"] = (ctx, mem_x, mem_y, idx)
+        return out
+
+    agent.retrain = timed_retrain
+    pairwise_sqdist.launches = 0
+    accs, images, train_s, n_tasks = [], 0, 0.0, 2
+    for _ in range(n_tasks):
+        x, y, _ = next(stream)
+        t0 = time.time()
+        state = agent.train_learner(state, x, y)
+        torch.cuda.synchronize()
+        train_s += time.time() - t0
+        images += (len(y) // params.batch) * params.batch
+        accs.append(agent.evaluate(state, loaders))
+    launches = pairwise_sqdist.launches
+    latest = float(accs[-1][n_tasks - 1])
+    end_acc = float(np.mean(accs[-1][:n_tasks]))
+    ctx, mem_x, mem_y, idx = timed["last"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        retrain(state, ctx, mem_x, mem_y, idx[:GDUMB_PROFILE_STEPS])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = kernel_times(prof)
+    per_step = {"kernels": len(kernels) / GDUMB_PROFILE_STEPS,
+                "device_ms": sum(us for _, us in kernels) / 1e3 / GDUMB_PROFILE_STEPS,
+                "wall_ms": wall * 1e3 / GDUMB_PROFILE_STEPS}
+    print("[gdumb] GDumb (gdumb_1k, batch 16, mem_epoch 30, clip 10) nf {}, {} tasks: accuracy "
+          "after each task on tasks 0-{} {}, Avg_End_Acc over them {:.4f}, latest task {:.4f}, "
+          "{:.1f} images/s; retrain {} steps in {:.1f} s, {:.1f} steps/s ({} in the last task); "
+          "{} profiled retrain steps: {:.0f} launches, {:.3f} ms device, {:.1f} ms host clock a "
+          "step; pairwise_sqdist launches {}".format(
+              params.nf, n_tasks, n_tasks - 1,
+              [[round(float(a), 4) for a in row[:n_tasks]] for row in accs], end_acc, latest,
+              images / train_s, timed["steps"], timed["s"], timed["steps"] / timed["s"], len(idx),
+              GDUMB_PROFILE_STEPS, per_step["kernels"], per_step["device_ms"],
+              per_step["wall_ms"], launches))
+    require(all(np.isfinite(row).all() for row in accs), "gdumb: a non-finite accuracy")
+    require(latest > 0.5, "gdumb: latest task accuracy {} is not above 0.5".format(latest))
+    return {"images_per_s": images / train_s, "latest_acc": latest, "end_acc": end_acc,
+            "launches": launches, "retrain_steps": timed["steps"], "retrain_s": timed["s"],
+            "retrain": per_step}
+
+
+def time_review(torch, review_s):
+    """An agent hook: time each after_train (the review epoch, for SCR) on
+    the host clock with a sync, into the list `review_s`."""
+    def hook(agent):
+        after_train = agent.after_train
+
+        def timed(state, ctx):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = after_train(state, ctx)
+            torch.cuda.synchronize()
+            review_s.append(time.perf_counter() - t0)
+            return out
+
+        agent.after_train = timed
+
+    return hook
+
+
+def profile_augment(torch, device, state, rows):
+    """Launches and device ms of one SCR augmentation call (draws included)
+    on `rows` images, under torch.profiler after a warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ocl_tpu_torch.ops.augment import draw_scr_transform, scr_transform
+    from ocl_tpu_torch.tools.kernel_timing import kernel_times
+
+    x = torch.rand(rows, 32, 32, 3, device=device, generator=state.generator)
+    scr_transform(x, draw_scr_transform(state.generator, state.host, rows, (32, 32)))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = scr_transform(x, draw_scr_transform(state.generator, state.host, rows, (32, 32)))
+        torch.cuda.synchronize()
+    require(bool(torch.isfinite(out).all()) and out.shape == x.shape,
+            "scr: the augmentation's output is not finite or has another shape")
+    kernels = kernel_times(prof)
+    return {"kernels": len(kernels), "device_ms": sum(us for _, us in kernels) / 1e3}
+
+
+def run_error_analysis(torch, agent, state, loaders):
+    """Phase 16: `agent`'s softmax eval with --error_analysis, in a temporary
+    working directory, held against its plain softmax eval."""
+    import numpy as np
+
+    accs = agent.evaluate(state, loaders)
+    totals = [int(m.sum()) for _, _, m in loaders]
+    wrong = [round((1 - a) * n) for a, n in zip(accs, totals)]
+    agent.params.error_analysis = True
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            ea_accs = agent.evaluate(state, loaders)
+            ea_s = time.perf_counter() - t0
+            with open("confusion", "rb") as fp:
+                correct_lb, predict_lb = pickle.load(fp)
+        finally:
+            os.chdir(cwd)
+            agent.params.error_analysis = False
+    no, nn_, oo, on = agent.error_list[-1]
+    new_task = agent.task_seen - 1
+    print("[errors] --error_analysis eval of phase 6's model ({} task(s) seen, {} test images): "
+          "accuracies {}, (no, nn, oo, on) = {}, wrong on the last task {} and on older tasks "
+          "{}; new/old class logit means {:.4f}/{:.4f}; confusion pickle {} labels; {:.2f} s".format(
+              agent.task_seen, sum(totals), [round(float(a), 4) for a in ea_accs],
+              (no, nn_, oo, on), wrong[new_task], sum(wrong[:new_task]),
+              agent.new_class_score[-1], agent.old_class_score[-1], len(correct_lb), ea_s))
+    require(np.array_equal(ea_accs, accs), "errors: accuracies differ from the softmax eval's")
+    require(no + nn_ == wrong[new_task] and oo + on == sum(wrong[:new_task]),
+            "errors: the counts do not add up to the wrong predictions")
+    require(len(correct_lb) == len(predict_lb) == sum(totals),
+            "errors: the confusion pickle does not hold one label per test image")
+    return {"counts": [no, nn_, oo, on], "seconds": ea_s}
 
 
 def main():
@@ -450,14 +634,38 @@ def main():
     require(math.isfinite(acc0) and acc0 > 0.5, "ER task-0 accuracy {} is not above 0.5".format(acc0))
 
     # 6-12. the rest of the replay family
-    family = {}
-    for tag, label, flags, n_tasks, prof_steps in FAMILY:
+    family, runs = {}, {}
+    for tag, label, flags, n_tasks, prof_steps in FAMILY + [ICARL]:
         t0 = time.time()
-        family[tag] = run_family_phase(torch, device, tag, label, flags, n_tasks, prof_steps,
-                                       pairwise_sqdist)
+        family[tag], runs[tag] = run_family_phase(torch, device, tag, label, flags, n_tasks,
+                                                  prof_steps, pairwise_sqdist)
         family[tag]["phase_s"] = time.time() - t0
+
+    # 14. GDumb
+    t0 = time.time()
+    family["gdumb"] = run_gdumb_phase(torch, device, pairwise_sqdist)
+    family["gdumb"]["phase_s"] = time.time() - t0
+
+    # 15. SCR, with the review epochs timed and the augmentation profiled
+    t0 = time.time()
+    review_s = []
+    tag, label, flags, n_tasks, prof_steps = SCR
+    family[tag], runs[tag] = run_family_phase(torch, device, tag, label, flags, n_tasks,
+                                              prof_steps, pairwise_sqdist,
+                                              agent_hook=time_review(torch, review_s))
+    scr_agent, scr_state, _ = runs[tag]
+    rows = scr_agent.params.eps_mem_batch + scr_agent.params.batch
+    aug = profile_augment(torch, device, scr_state, rows)
+    family[tag].update(review_s=review_s, augment=aug, phase_s=time.time() - t0)
+    print("[scr] augmentation on {} images: {} launches, {:.3f} ms device a call (draws "
+          "included); review epoch after each task {} s".format(
+              rows, aug["kernels"], aug["device_ms"], [round(t, 2) for t in review_s]))
+
+    # 16. error analysis on phase 6's model
+    family["errors"] = run_error_analysis(torch, *runs["fused"])
     print("[family] seconds a phase: {}".format(
-        ", ".join("{} {:.1f}".format(tag, f["phase_s"]) for tag, f in family.items())))
+        ", ".join("{} {:.1f}".format(tag, f["phase_s"]) for tag, f in family.items()
+                  if "phase_s" in f)))
 
     main_shape = shapes[0]  # 30 x 30 x 160, the update's shape on the main path
     print(json.dumps({"kernels": [{

@@ -1,1 +1,1 @@
-"""Continual learners of the port (ER so far)."""
+"""Continual learners of the port."""

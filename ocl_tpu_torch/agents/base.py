@@ -3,12 +3,15 @@
 
 ocl_tpu runs each task as one jitted `lax.scan`; here each step runs from
 Python on the device's stream, and the host reads results back once per task
-(losses) and once per evaluation (accuracies).
+(losses) and once per evaluation (accuracies; with --error_analysis, each
+test set's predictions and logits).
 """
 
 from __future__ import annotations
 
 import math
+import pickle
+import random
 from dataclasses import dataclass
 from typing import Any
 
@@ -29,6 +32,7 @@ from ocl_tpu_torch.models import (
 )
 from ocl_tpu_torch.ops import losses
 from ocl_tpu_torch.optim import setup_opt
+from ocl_tpu_torch.utils.meters import AverageMeter
 
 NCM_CHUNK = 256  # buffer rows per exemplar-feature forward in NCM eval
 
@@ -52,6 +56,9 @@ class TrainState:
     # frozen model copy, and "has_teacher", a 0/1 float tensor) and EWC's
     # parameter-shaped dicts (agents/ewc_pp.py)
     agent: Any = None
+    # the run's host-side draws, which the host needs without a device read:
+    # GDumb's evictions and re-init seeds, SCR's jitter order
+    host: random.Random | None = None
 
 
 class ContinualLearner:
@@ -60,8 +67,6 @@ class ContinualLearner:
     uses_buffer = True
 
     def __init__(self, params):
-        if getattr(params, "error_analysis", False):
-            raise NotImplementedError("--error_analysis is not ported yet")
         self.params = params
         self.data = params.data
         self.device = torch.device(params.device)
@@ -69,32 +74,46 @@ class ContinualLearner:
         self.trick = params.trick
         self.needs_kd = bool(self.trick.get("kd_trick") or self.trick.get("kd_trick_star")
                              or params.agent == "LWF")
-        self.ncm_classify = bool(self.trick.get("ncm_trick"))
+        self.ncm_classify = bool(self.trick.get("ncm_trick")) or \
+            params.agent in ("ICARL", "SCR", "SCP")
         self.old_labels: list = []
         self.new_labels: list = []
         self.new_labels_zombie: list = []
         self.class_task_map: dict = {}
         self.task_seen = 0
         self.verbose = params.verbose
+        # --error_analysis accumulators, one entry an evaluation (reference
+        # agents/base.py:33-40)
+        self.error_list: list = []
+        self.new_class_score: list = []
+        self.old_class_score: list = []
+        self.fc_norm_new: list = []
+        self.fc_norm_old: list = []
+        self.bias_norm_new: list = []
+        self.bias_norm_old: list = []
 
     # ---------------------------------------------------------------- state
 
     def init_state(self, seed: int) -> TrainState:
-        """Fresh model, optimizer, buffer, agent state and generator for one
+        """Fresh model, optimizer, buffer, agent state and generators for one
         run. The weights come from a CPU generator, so a seed gives the same
         weights on every device; the run's draws come from a generator on the
-        device. The two take distinct seeds spawned from `seed` (ocl_tpu
-        splits its key in two): on the CPU, two generators with one seed
-        would draw the same numbers for the weights and for the run."""
+        device, and the draws the host needs from a `random.Random`. The
+        three take distinct seeds spawned from `seed` (ocl_tpu splits its key
+        in two): on the CPU, two generators with one seed would draw the same
+        numbers for the weights and for the run. The first two words of
+        generate_state(3) are those of generate_state(2), so the weights and
+        device draws are those of a two-seed spawn."""
         p = self.params
-        weights_seed, draws_seed = (int(s) for s in np.random.SeedSequence(seed).generate_state(2))
+        weights_seed, draws_seed, host_seed = (
+            int(s) for s in np.random.SeedSequence(seed).generate_state(3))
         model = setup_architecture(p, torch.Generator().manual_seed(weights_seed), self.device)
         opt = setup_opt(p.optimizer, model.parameters(), p.learning_rate, p.weight_decay)
         buffer = init_buffer(p.mem_size, self.data, self.device) if self.uses_buffer else None
         generator = torch.Generator(device=self.device).manual_seed(draws_seed)
         self.old_labels, self.new_labels, self.task_seen = [], [], 0
         return TrainState(model=model, optimizer=opt, buffer=buffer, generator=generator,
-                          agent=self.init_agent_state(model))
+                          agent=self.init_agent_state(model), host=random.Random(host_seed))
 
     def init_agent_state(self, model):
         if self.needs_kd:
@@ -150,8 +169,14 @@ class ContinualLearner:
         w = float(np.float32(1.0) / (t if self.trick.get("kd_trick") else np.sqrt(t)))
         return w * loss + (1.0 - w) * kd
 
-    def review_loss(self, model, xb, yb, ctx):
-        """The loss of one review_trick batch (agents/review.py)."""
+    def review_draws(self, state, batch):
+        """The random draws of one review_trick batch: none here; SCR
+        augments its batches."""
+        return None
+
+    def review_loss(self, model, xb, yb, ctx, draws=None):
+        """The loss of one review_trick batch (agents/review.py), with that
+        batch's `review_draws`."""
         return self.criterion(forward_train(model, xb), yb, ctx)
 
     # ------------------------------------------------------------- training
@@ -204,14 +229,17 @@ class ContinualLearner:
     # ------------------------------------------------------------- evaluate
 
     def evaluate(self, state: TrainState, test_loaders):
-        """Accuracy on every task's test set: softmax, or nearest class mean
-        with ncm_trick (counterpart of ocl_tpu/agents/base.py:284-335).
+        """Accuracy on every task's test set: nearest class mean (iCaRL, SCR,
+        ncm_trick), else softmax, instrumented with --error_analysis
+        (counterpart of ocl_tpu/agents/base.py:284-335).
 
         test_loaders: list of (x [nb, B, H, W, C], y [nb, B], mask [nb, B])
         tensors on the device (see data.prepare_test_loaders).
         """
         if self.ncm_classify:
             return self._evaluate_ncm(state, test_loaders)
+        if getattr(self.params, "error_analysis", False):
+            return self._evaluate_error_analysis(state, test_loaders)
         return self._accuracies(test_loaders, lambda xb: forward_eval(state.model, xb).argmax(1))
 
     def _accuracies(self, test_loaders, predict):
@@ -227,6 +255,77 @@ class ContinualLearner:
         accs = correct / np.maximum(total, 1)
         if self.verbose:
             print(accs)
+        return accs
+
+    def _evaluate_error_analysis(self, state: TrainState, test_loaders):
+        """Softmax eval + old/new confusion instrumentation (counterpart of
+        ocl_tpu/agents/base.py:337-427; reference agents/base.py:144-226):
+        counts of old-task errors landing on the last task's classes (on) or
+        elsewhere (oo), of last-task errors landing on older classes (no) or
+        elsewhere (nn), the mean logits over the old and the new class
+        columns, and the linear head's per-group weight and bias means (NaN
+        for an empty group; none for a model without `linear`); dumps
+        (correct_lb, predict_lb) to a `confusion` pickle in the working
+        directory. Each test set's predictions and logits are read back once."""
+        zombie = set(self.new_labels_zombie)
+        old_minus_z = sorted(set(self.old_labels) - zombie)
+        zombie_l = sorted(zombie)
+        accs = np.zeros(len(test_loaders))
+        no = nn_ = oo = on = 0
+        new_score, old_score = AverageMeter(), AverageMeter()
+        correct_lb, predict_lb = [], []
+        for task, (x, y, m) in enumerate(test_loaders):
+            logits = torch.cat([forward_eval(state.model, xb) for xb in x])
+            ms = m.reshape(-1).cpu().numpy()
+            logits = logits.cpu().numpy()[ms]
+            ys = y.reshape(-1).cpu().numpy()[ms]
+            preds = logits.argmax(1)
+            accs[task] = float((preds == ys).mean()) if len(ys) else 0.0
+            correct_lb += [task] * len(ys)
+            predict_lb += [self.class_task_map.get(int(p), -1) for p in preds]
+            wrong = preds[preds != ys]
+            if task < self.task_seen - 1:
+                on_tmp = int(np.isin(wrong, zombie_l).sum())
+                oo += len(wrong) - on_tmp
+                on += on_tmp
+                if old_minus_z:
+                    old_score.update(float(logits[:, old_minus_z].mean()), len(ys))
+            elif task == self.task_seen - 1:
+                no_tmp = int(np.isin(wrong, old_minus_z).sum())
+                no += no_tmp
+                nn_ += len(wrong) - no_tmp
+                if zombie_l:
+                    new_score.update(float(logits[:, zombie_l].mean()), len(ys))
+        self.error_list.append((no, nn_, oo, on))
+        self.new_class_score.append(new_score.avg())
+        self.old_class_score.append(old_score.avg())
+        linear = getattr(state.model, "linear", None)
+        if linear is not None:
+            # ocl_tpu's Dense kernel is [in, out]: its kernel[:, cols] is
+            # weight[cols, :] here
+            weight = linear.weight.detach().cpu().numpy()
+            bias = linear.bias.detach().cpu().numpy()
+
+            def group_mean(a, cols):
+                return float(a[cols].mean()) if cols else float("nan")
+
+            self.fc_norm_new.append(group_mean(weight, zombie_l))
+            self.bias_norm_new.append(group_mean(bias, zombie_l))
+            self.fc_norm_old.append(group_mean(weight, old_minus_z))
+            self.bias_norm_old.append(group_mean(bias, old_minus_z))
+        if self.verbose:
+            # the reference's lines, in its order (agents/base.py:212-226)
+            print(accs)
+            print("no ratio: {}\non ratio: {}".format(no / (no + nn_ + 0.1), on / (oo + on + 0.1)))
+            print(self.error_list)
+            print(self.new_class_score)
+            print(self.old_class_score)
+            print(self.fc_norm_old)
+            print(self.fc_norm_new)
+            print(self.bias_norm_old)
+            print(self.bias_norm_new)
+        with open("confusion", "wb") as fp:
+            pickle.dump([correct_lb, predict_lb], fp)
         return accs
 
     def ncm_means(self, state: TrainState, noise=None):

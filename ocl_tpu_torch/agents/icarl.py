@@ -1,0 +1,98 @@
+"""iCaRL, online variant (counterpart of ocl_tpu/agents/icarl.py; reference
+agents/icarl.py).
+
+BCE with logits over one-hot targets in a compact label space (labels
+numbered in the order they first arrive, reference :43-46), summed over the
+classes seen so far. Once a task has finished, a memory batch of `batch` rows
+is appended with all-zero targets, and every old-class column's target
+becomes the sigmoid of the previous task's model on the combined rows
+(reference :57-62). Slots the buffer update wrote during this task are not
+retrieved (reference :65). Evaluation is nearest-class-mean (agents/base.py).
+
+ocl_tpu decides "is there a teacher" on the device with `lax.cond`; here it
+is a host fact, the task count. On the first task the step runs on the
+incoming batch alone: ocl_tpu's memory rows are all masked out there, and a
+masked row changes neither the BN statistics nor the loss.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ocl_tpu_torch.agents.base import ContinualLearner
+from ocl_tpu_torch.buffer import build_update
+from ocl_tpu_torch.buffer.retrieve import gumbel, random_retrieve
+from ocl_tpu_torch.models import forward_teacher, forward_train, snapshot
+from ocl_tpu_torch.ops.losses import bce_ohe
+
+
+class Icarl(ContinualLearner):
+    def __init__(self, params):
+        super().__init__(params)
+        self.update = build_update(self)
+        self.compact: dict = {}   # original label -> compact column (per run)
+
+    def init_state(self, seed):
+        self.compact = {}
+        return super().init_state(seed)
+
+    def init_agent_state(self, model):
+        return {"teacher": snapshot(model)}
+
+    def draw(self, generator, batch):
+        """One step's draws: the retrieval's Gumbel noise over the slots, then
+        the update's (ocl_tpu's r_ret, r_upd)."""
+        return {"retrieve": {"g": gumbel((self.params.mem_size,), generator, self.device)},
+                "update": self.update.draw(generator, batch)}
+
+    def train_task(self, state, ctx, x_train, y_train):
+        self.start_task()
+        return super().train_task(state, ctx, x_train, y_train)
+
+    def start_task(self):
+        """Per task, on the host and moved to the device once: the compact
+        label map, the column masks, and a fresh mask of updated slots (one
+        spare slot takes the writes of dropped items)."""
+        for lbl in self.new_labels:
+            self.compact.setdefault(lbl, len(self.compact))
+        label_map = torch.zeros(self.n_classes, dtype=torch.int64)
+        for orig, cid in self.compact.items():
+            label_map[orig] = cid
+        cols = torch.arange(self.n_classes)
+        self.label_map = label_map.to(self.device)
+        self.col_mask = (cols < len(self.old_labels) + len(self.new_labels)).to(self.device)
+        self.old_cols = (cols < len(self.old_labels)).to(self.device)
+        self.updated = torch.zeros(self.params.mem_size + 1, dtype=torch.bool, device=self.device)
+
+    def step(self, state, ctx, xb, yb, draws=None):
+        model, opt, buf = state.model, state.optimizer, state.buffer
+        if draws is None:
+            draws = self.draw(state.generator, xb.shape[0])
+        batch = xb.shape[0]
+        targets = F.one_hot(self.label_map[yb], self.n_classes).float()
+        x_all, row_mask = xb, None
+        if ctx.task_seen > 0:
+            mem_x, _, _, mem_mask = random_retrieve(buf, batch, draws["retrieve"]["g"],
+                                                    excl_mask=self.updated[:-1])
+            x_all = torch.cat([xb, mem_x])
+            row_mask = torch.cat([torch.ones_like(yb, dtype=torch.bool), mem_mask])
+            targets = torch.cat([targets, torch.zeros_like(targets)])
+            # the previous task's model in train mode (the reference
+            # deepcopies it there): batch-statistic BN over the valid rows
+            q = torch.sigmoid(forward_teacher(state.agent["teacher"], x_all, w=row_mask))
+            targets = torch.where(self.old_cols[None, :], q, targets)
+        opt.zero_grad()
+        logits = forward_train(model, x_all, row_mask)
+        loss = bce_ohe(logits, targets, class_mask=self.col_mask, mask=row_mask)
+        loss.backward()
+        opt.step()
+        replaced = self.update.run(model, buf, xb, yb, draws["update"])
+        self.updated[torch.where(replaced >= 0, replaced, buf.mem_size)] = True
+        return loss.detach(), torch.zeros((), device=self.device)
+
+    def after_train(self, state, ctx):
+        """The teacher takes this task's weights before the review pass, if
+        any (ocl_tpu/agents/icarl.py:170-180)."""
+        state.agent["teacher"].load_state_dict(state.model.state_dict())
+        return super().after_train(state, ctx)

@@ -161,7 +161,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--scr_review_dead_forward",
                         dest="scr_review_dead_forward", default=True,
                         type=boolean_string,
-                        help="SCR + review_trick dead forward (not ported yet)")
+                        help="SCR + review_trick: each review batch first "
+                             "runs a train-mode forward whose output is "
+                             "dropped, folding its BN statistics once more "
+                             "(the reference's order)")
     parser.add_argument("--scan_unroll", dest="scan_unroll", default=None, type=int,
                         help="unroll factor of ocl_tpu's per-task scan; the "
                              "port runs each step from Python and has no scan")

@@ -1,10 +1,14 @@
 """Weights between ocl_tpu pytrees and the port's state dict.
 
-`from_jax(params, batch_stats)` turns the Reduced ResNet-18 pytrees of
-ocl_tpu (numpy leaves, e.g. after `jax.tree_util.tree_map(np.asarray, ...)`)
-into a state dict for `ocl_tpu_torch.models.resnet.ResNet`; `to_jax` does the
-reverse. Conv kernels go HWIO <-> OIHW and the Dense kernel [in, out] <->
-Linear weight [out, in].
+`from_jax(params, batch_stats)` turns the Reduced ResNet-18 or SupConResNet
+pytrees of ocl_tpu (numpy leaves, e.g. after
+`jax.tree_util.tree_map(np.asarray, ...)`) into a state dict for
+`ocl_tpu_torch.models.resnet.ResNet` or `SupConResNet`; `to_jax` does the
+reverse. Conv kernels go HWIO <-> OIHW and Dense kernels [in, out] <->
+Linear weights [out, in]. SupConResNet's trunk sits under `encoder` in both
+(without a `linear`: ocl_tpu never calls the encoder's head, so Flax never
+creates it), and its head's Dense layers are `head_layers_<i>` in ocl_tpu
+and `head_layers.<i>` here.
 
 Feature order: the port flattens pooled features in NHWC order, as the JAX
 package does, so the Dense kernel needs only the transpose. A torch model
@@ -42,6 +46,13 @@ _BN_LEAVES_INV = {v: k for k, v in _BN_LEAVES.items()}
 def _jax_entry(key: str):
     """Port state-dict key -> (JAX tree 'params' or 'stats', path, kind)."""
     parts = key.split(".")
+    if parts[0] == "encoder":
+        tree, path, kind = _jax_entry(key[len("encoder."):])
+        return tree, ("encoder",) + path, kind
+    if parts[0] == "head_layers":
+        leaf = "kernel" if parts[2] == "weight" else "bias"
+        return "params", ("head_layers_" + parts[1], "Dense_0", leaf), \
+            "dense" if leaf == "kernel" else "plain"
     if parts[0] == "stages":
         prefix = ("stages_{}_{}".format(parts[1], parts[2]), _BLOCK_MODS_INV[parts[3]])
         mod, leaf = parts[3], parts[4]
@@ -58,6 +69,11 @@ def _jax_entry(key: str):
 
 def _port_key(tree: str, path: tuple) -> str:
     """Inverse of `_jax_entry`."""
+    if path[0] == "encoder":
+        return "encoder." + _port_key(tree, path[1:])
+    if path[0].startswith("head_layers_"):
+        return "head_layers.{}.{}".format(path[0][len("head_layers_"):],
+                                          "weight" if path[-1] == "kernel" else "bias")
     if path[0] == "linear":
         return "linear." + ("weight" if path[-1] == "kernel" else "bias")
     if path[0].startswith("stages_"):

@@ -1,6 +1,7 @@
 """Model construction and apply helpers (counterpart of ocl_tpu/models/__init__.py).
 
-`setup_architecture` builds the Reduced ResNet-18 per dataset. The JAX
+`setup_architecture` builds the Reduced ResNet-18 per dataset, and
+SupConResNet for SCR. The JAX
 package's pure `forward_train(module, params, stats, x, w)` becomes
 `forward_train(model, x, w)`: the model holds its parameters, and the
 train-mode forward folds the batch's BN statistics into the model's running
@@ -17,7 +18,7 @@ import torch
 
 from ocl_tpu_torch.config import input_size_match, n_classes_match
 from ocl_tpu_torch.models.layers import torch_init_
-from ocl_tpu_torch.models.resnet import Reduced_ResNet18
+from ocl_tpu_torch.models.resnet import Reduced_ResNet18, SupConResNet
 
 # Pooled spatial cells of the Reduced ResNet-18 trunk per input resolution;
 # feature dim = cells * nf * 8 -> 160 / 640 / 2560 at nf=20.
@@ -29,17 +30,19 @@ def feature_dim_for(data: str, nf: int = 20) -> int:
 
 
 def setup_architecture(params, generator: torch.Generator, device) -> torch.nn.Module:
-    """Reduced ResNet-18 for `params.data`, its weights drawn from `generator`
-    (a CPU generator, so a seed gives the same weights on every device) and
-    moved to `device`."""
-    if params.agent in ("SCR", "SCP", "CNDPM"):
-        raise NotImplementedError(
-            "the {} architecture is not ported yet".format(params.agent))
+    """Reduced ResNet-18 for `params.data` (SupConResNet for SCR), its
+    weights drawn from `generator` (a CPU generator, so a seed gives the same
+    weights on every device) and moved to `device`."""
+    if params.agent == "CNDPM":
+        raise NotImplementedError("the CNDPM architecture is not ported yet")
     if getattr(params, "compute_dtype", "fp32") != "fp32":
         raise NotImplementedError("the port computes in fp32 only so far")
     nf = getattr(params, "nf", 20)
-    model = Reduced_ResNet18(n_classes_match[params.data], nf=nf,
-                             feature_dim=feature_dim_for(params.data, nf))
+    if params.agent in ("SCR", "SCP"):
+        model = SupConResNet(dim_in=feature_dim_for(params.data, nf), head=params.head, nf=nf)
+    else:
+        model = Reduced_ResNet18(n_classes_match[params.data], nf=nf,
+                                 feature_dim=feature_dim_for(params.data, nf))
     torch_init_(model, generator)
     return model.to(device)
 

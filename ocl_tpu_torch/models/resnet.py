@@ -2,17 +2,19 @@
 ocl_tpu/models/resnet.py).
 
 BasicBlock [2,2,2,2], nf=20, bias'd linear head; feature dim 160 at 32x32.
-`features` and `logits` stay separate: the ASER KNN-SV scoring consumes
-`features`. Inputs are NHWC; `features` permutes them to NCHW. Pooled features are flattened in NHWC order,
-the JAX package's, so its Dense kernel maps onto `linear` by a transpose
-alone (ocl_tpu_torch/interop.py). The other ResNets and SupConResNet are not
-ported yet.
+`features` and `logits` stay separate: the ASER KNN-SV scoring and NCM eval
+consume `features`. Inputs are NHWC; `features` permutes them to NCHW.
+Pooled features are flattened in NHWC order, the JAX package's, so its Dense
+kernel maps onto `linear` by a transpose alone (ocl_tpu_torch/interop.py).
+SupConResNet (SCR's model) is the same trunk under a projection head. The
+other ResNets are not ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -44,7 +46,7 @@ class BasicBlock(nn.Module):
 class ResNet(nn.Module):
     """GEM/MIR-style ResNet trunk + linear head (reference: models/resnet.py:71-109)."""
 
-    def __init__(self, num_blocks: Sequence[int], num_classes: int, nf: int = 20,
+    def __init__(self, num_blocks: Sequence[int], num_classes: int | None, nf: int = 20,
                  bias: bool = True, pool_window: int = 4, in_channels: int = 3,
                  feature_dim: int | None = None):
         super().__init__()
@@ -61,7 +63,10 @@ class ResNet(nn.Module):
                 in_planes = planes * BasicBlock.expansion
             stages.append(nn.ModuleList(blocks))
         self.stages = nn.ModuleList(stages)
-        self.linear = TorchLinear(feature_dim or in_planes, num_classes, bias=bias)
+        # no head for num_classes None: SupConResNet's encoder, whose head
+        # ocl_tpu never calls and so never creates
+        self.linear = None if num_classes is None else \
+            TorchLinear(feature_dim or in_planes, num_classes, bias=bias)
 
     def features(self, x, train: bool = False, w=None, fold: bool = True):
         # NHWC -> contiguous NCHW. The permuted view alone (channels_last
@@ -83,3 +88,33 @@ class ResNet(nn.Module):
 
 def Reduced_ResNet18(nclasses, nf=20, bias=True, feature_dim=None):
     return ResNet([2, 2, 2, 2], nclasses, nf, bias, feature_dim=feature_dim)
+
+
+class SupConResNet(nn.Module):
+    """Reduced ResNet-18 encoder + projection head, L2-normalised embedding
+    (counterpart of ocl_tpu/models/resnet.py:138-169; reference
+    models/resnet.py:140-168). `head` is "mlp" (dim_in -> dim_in, ReLU,
+    -> feat_dim), "linear" (dim_in -> feat_dim) or "None" (the encoder's
+    features); `features` are the encoder's features."""
+
+    def __init__(self, dim_in: int = 160, head: str = "mlp", feat_dim: int = 128, nf: int = 20):
+        super().__init__()
+        self.encoder = ResNet([2, 2, 2, 2], None, nf)
+        if head == "linear":
+            layers = [TorchLinear(dim_in, feat_dim)]
+        elif head == "mlp":
+            layers = [TorchLinear(dim_in, dim_in), TorchLinear(dim_in, feat_dim)]
+        elif head == "None":
+            layers = []
+        else:
+            raise NotImplementedError("head not supported: {}".format(head))
+        self.head_layers = nn.ModuleList(layers)
+
+    def features(self, x, train: bool = False, w=None, fold: bool = True):
+        return self.encoder.features(x, train, w, fold)
+
+    def forward(self, x, train: bool = False, w=None, fold: bool = True):
+        feat = self.features(x, train, w, fold)
+        for i, layer in enumerate(self.head_layers):
+            feat = layer(F.relu(feat) if i else feat)
+        return feat / torch.clamp(feat.norm(dim=1, keepdim=True), min=1e-12)

@@ -1,2 +1,2 @@
-"""Tensor ops of the port: losses, KNN-SV, and the CUDA kernels with their
-plain versions."""
+"""Tensor ops of the port: losses, KNN-SV, SCR's augmentation, and the CUDA
+kernels with their plain versions."""

@@ -1,8 +1,7 @@
 """Name registries of the port (counterpart of ocl_tpu/registry.py).
 
 Entries resolve lazily, as in the JAX registry. Only the names the port has
-so far are registered; the runner names what is missing (ICARL, GDUMB, SCR,
-CNDPM).
+so far are registered; the runner names what is missing (CNDPM).
 """
 
 from __future__ import annotations
@@ -27,4 +26,7 @@ agents = {
     "AGEM": _lazy("ocl_tpu_torch.agents.agem", "AGEM"),
     "EWC": _lazy("ocl_tpu_torch.agents.ewc_pp", "EWC_pp"),
     "LWF": _lazy("ocl_tpu_torch.agents.lwf", "Lwf"),
+    "ICARL": _lazy("ocl_tpu_torch.agents.icarl", "Icarl"),
+    "GDUMB": _lazy("ocl_tpu_torch.agents.gdumb", "Gdumb"),
+    "SCR": _lazy("ocl_tpu_torch.agents.scr", "SupContrastReplay"),
 }

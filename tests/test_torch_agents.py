@@ -24,7 +24,8 @@ from ocl_tpu.config import default_params as j_default_params
 from ocl_tpu.registry import agents as j_agents
 from ocl_tpu_torch import interop
 from ocl_tpu_torch.agents import review
-from ocl_tpu_torch.agents.base import TrainState
+from ocl_tpu_torch.agents.base import TaskCtx, TrainState
+from ocl_tpu_torch.buffer.retrieve import random_retrieve
 from ocl_tpu_torch.config import default_params
 from ocl_tpu_torch.data import prepare_test_loaders
 from ocl_tpu_torch.optim import setup_opt
@@ -300,3 +301,269 @@ def test_ncm_eval_matches_ocl_tpu(zero_empty):
     got = agent._evaluate_ncm(tstate, prepare_test_loaders(tests, t_params, "cpu"), noise=_t(noise))
     np.testing.assert_array_equal(got, want)
     assert want[0] > 0.5
+
+
+# ------------------------------------------------ iCaRL, GDumb, SCR, error analysis
+
+def class_batch(seed, classes, n=10):
+    """n class images with labels drawn from `classes`."""
+    g = np.random.RandomState(seed)
+    y = g.choice(classes, n)
+    return class_images(y, g), y
+
+
+def jax_state(j_agent, params, stats, buf, key, ag=None):
+    return JTrainState(params=_jnp(params), batch_stats=_jnp(stats),
+                       opt_state=j_agent.tx.init(_jnp(params)), buffer=buf,
+                       agent=_jnp(ag) if ag is not None else None, rng=key)
+
+
+def port_state(params, stats, buf=None, ag=None, model=None, optimizer="SGD"):
+    model = model if model is not None else port_model(params, stats)
+    return TrainState(model=model, optimizer=setup_opt(optimizer, model.parameters(),
+                                                       HP["learning_rate"]),
+                      buffer=buf, generator=torch.Generator(),
+                      agent=interop.agent_from_jax(ag, model) if ag is not None else None)
+
+
+def reservoir_draws(key, batch=10):
+    return {"u": _t(jax.random.uniform(key, (batch,)))}
+
+
+@pytest.mark.parametrize("task_seen", [0, 1])
+def test_icarl_steps_match_ocl_tpu(task_seen):
+    """Two steps on a full buffer, so the second retrieves with a partly
+    updated mask (the slots the first step's update wrote). At task 1 a
+    teacher distils the old-class columns over the combined rows; at task 0
+    ocl_tpu masks the memory rows out and the port leaves them out. The
+    second step starts from weights that differ by rounding, which a ReLU
+    input near zero at nf 4 can amplify past atol (up to 4.5e-4 over the
+    keys and batches tried at task 1; 5.7e-6 for one of them at lr 0.001,
+    where a wrong retrieval would not shrink); this key and these batches
+    keep clear of it."""
+    hp = dict(HP, agent="ICARL")
+    j_agent = j_agents["ICARL"](j_default_params(**hp))
+    agent = agents["ICARL"](default_params(**hp, device="cpu"))
+    params, stats = random_weights(21)
+    old = OLD_LABELS[: 4 * task_seen]
+    new = [1, 3] if task_seen == 0 else [1, 3, 5, 7]
+    xs, ys = zip(*(class_batch(44 + i, new) for i in range(2)))
+    agent.old_labels = list(old)
+    agent.compact = {c: i for i, c in enumerate(old)}
+    agent.before_train(np.concatenate(ys))
+    agent.start_task()
+    ag = {"has_teacher": np.float32(task_seen)}
+    ag["teacher_params"], ag["teacher_stats"] = random_weights(22)
+    jbuf, tbuf = make_buffers(MEM, MEM, 50, seed=23)
+    key = jax.random.PRNGKey(33)
+
+    fn = jax.jit(j_agent._build_train_task_fn())
+    state, _ = fn(jax_state(j_agent, params, stats, jbuf, key, ag),
+                  jnp.asarray(agent.label_map.numpy(), jnp.int32),
+                  jnp.asarray(len(old), jnp.int32),
+                  jnp.asarray(len(old) + len(agent.new_labels), jnp.int32),
+                  jnp.asarray(np.stack(xs)), jnp.asarray(np.stack(ys), jnp.int32))
+
+    tstate = port_state(params, stats, tbuf, ag)
+    ctx = TaskCtx(old_mask=None, new_mask=None, task_seen=task_seen)
+    rng = key
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        rng, r_ret, r_upd = jax.random.split(rng, 3)
+        draws = {"retrieve": {"g": _t(jax.random.gumbel(r_ret, (MEM,)))},
+                 "update": reservoir_draws(r_upd)}
+        if i == 1:   # the retrieval must skip the slots the first update wrote
+            updated = agent.updated[:-1].clone()
+            assert 0 < updated.sum() < MEM
+            _, _, idx, mask = random_retrieve(tbuf, len(y), draws["retrieve"]["g"],
+                                              excl_mask=updated)
+            assert mask.all() and not updated[idx].any()
+        agent.step(tstate, ctx, torch.from_numpy(x), torch.from_numpy(y), draws=draws)
+    assert_states_close(state, tstate)
+
+
+def test_gdumb_greedy_update_matches_ocl_tpu():
+    """Two tasks of 30 images into a memory of 20: the per-class quota falls
+    as classes arrive and the largest class loses a random image. ocl_tpu
+    draws the evictions from Python's global `random`, seeded here; the port
+    from the `random.Random` it is handed, with the same seed."""
+    import random
+
+    hp = dict(HP, agent="GDUMB", mem_size=20)
+    j_agent = j_agents["GDUMB"](j_default_params(**hp))
+    agent = agents["GDUMB"](default_params(**hp, device="cpu"))
+    stream = [class_batch(50, [0, 1], 30), class_batch(51, [2, 3, 4], 30)]
+    saved = random.getstate()   # the process's global generator, shared with other tests
+    random.seed(7)
+    try:
+        for x, y in stream:
+            for xi, yi in zip(x, y):
+                j_agent.greedy_balancing_update(xi, int(yi))
+    finally:
+        random.setstate(saved)
+    rng = random.Random(7)
+    for x, y in stream:
+        for xi, yi in zip(x, y):
+            agent.greedy_balancing_update(xi, int(yi), rng)
+    assert agent.mem_c == j_agent.mem_c and sum(agent.mem_c.values()) == 20
+    assert list(agent.mem_img) == list(j_agent.mem_img)
+    for c in agent.mem_img:
+        np.testing.assert_array_equal(np.stack(agent.mem_img[c]), np.stack(j_agent.mem_img[c]))
+    mem_x, mem_y = agent.memory()
+    assert mem_x.shape == (20, 32, 32, 3)
+    assert mem_y.tolist() == [c for c in agent.mem_c for _ in range(agent.mem_c[c])]
+
+
+@pytest.mark.parametrize("clip", [0.5, 6.0])
+def test_gdumb_retrain_matches_ocl_tpu(clip):
+    """Four clipped minibatch steps over a memory of 30 (ocl_tpu's retrain
+    scan with optax.clip_by_global_norm, then SGD). At clip 0.5 every step
+    scales; at 6.0 the steps' global norms are 6.99, 6.32, 5.57 and 6.19,
+    so all but the third do. Either way the weights differ from an
+    unclipped run's. Over four steps at nf 4, weights that differ by
+    rounding can part at a ReLU input near zero (other memory batches tried
+    differ by up to 5.7e-3, clipped or not); this one keeps clear of it."""
+    hp = dict(HP, agent="GDUMB", clip=clip)
+    j_agent = j_agents["GDUMB"](j_default_params(**hp))
+    agent = agents["GDUMB"](default_params(**hp, device="cpu"))
+    params, stats = random_weights(21)
+    mem_x, mem_y = class_batch(62, [0, 1, 2], 30)
+    idx = np.random.RandomState(63).permutation(30)[:20].reshape(2, 10)
+    idx = np.concatenate([idx, idx[::-1]])
+    ctx_y = np.arange(3)
+    fn = jax.jit(j_agent._build_retrain_fn())
+    p, st, _, _ = fn(_jnp(params), _jnp(stats), j_agent.retrain_tx.init(_jnp(params)),
+                     j_agent.before_train(ctx_y), jnp.asarray(mem_x),
+                     jnp.asarray(mem_y, jnp.int32), jnp.asarray(idx))
+    tstate = port_state(params, stats)
+    losses = agent.retrain(tstate, agent.before_train(ctx_y), torch.from_numpy(mem_x),
+                           torch.from_numpy(mem_y), torch.from_numpy(idx))
+    assert losses.shape == (len(idx),)
+    assert_states_close(JTrainState(params=p, batch_stats=st, opt_state=None, buffer=None,
+                                    agent=None, rng=None), tstate)
+    unclipped = port_state(params, stats)
+    agents["GDUMB"](default_params(**dict(hp, clip=1e9), device="cpu")).retrain(
+        unclipped, agent.before_train(ctx_y), torch.from_numpy(mem_x), torch.from_numpy(mem_y),
+        torch.from_numpy(idx))
+    assert not all(torch.allclose(a, b, rtol=1e-3, atol=1e-4) for a, b in zip(
+        tstate.model.parameters(), unclipped.model.parameters()))
+
+
+def supcon_weights(seed, head="mlp"):
+    from ocl_tpu_torch.models.resnet import SupConResNet
+
+    return random_weights(seed, model=SupConResNet(dim_in=NF * 8, head=head, nf=NF))
+
+
+def supcon_model(params, stats, head="mlp"):
+    from ocl_tpu_torch.models.resnet import SupConResNet
+
+    model = SupConResNet(dim_in=NF * 8, head=head, nf=NF)
+    model.load_state_dict(interop.from_jax(params, stats), strict=True)
+    return model
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("fill", [35, 0])
+def test_scr_step_matches_ocl_tpu(fused, fill):
+    """One SCR step, the two views through one masked forward or two: with a
+    buffer of 35 (10 memory rows + the batch, augmented with ocl_tpu's
+    draws) and with an empty one, where both skip the optimizer step and
+    only the buffer update runs."""
+    from test_torch_augment import port_draws as aug_draws
+
+    hp = dict(HP, agent="SCR", fused_replay=fused)
+    j_agent = j_agents["SCR"](j_default_params(**hp))
+    agent = agents["SCR"](default_params(**hp, device="cpu"))
+    params, stats = supcon_weights(24)
+    x, y = batch(30)
+    jbuf, tbuf = make_buffers(MEM, fill, fill, seed=23)
+    key = jax.random.PRNGKey(32)
+    fn = jax.jit(j_agent._build_train_task_fn())
+    state, _ = fn(jax_state(j_agent, params, stats, jbuf, key), j_agent.before_train(y),
+                  jnp.asarray(x)[None], jnp.asarray(y, jnp.int32)[None])
+
+    rng, r_ret, r_aug = jax.random.split(key, 3)
+    _, r_upd = jax.random.split(rng)
+    draws = {"iters": [{"retrieve": {"g": _t(jax.random.gumbel(r_ret, (MEM,)))},
+                        "aug": aug_draws(r_aug, n=HP["eps_mem_batch"] + len(y))}],
+             "update": reservoir_draws(r_upd)}
+    tstate = port_state(params, stats, tbuf, model=supcon_model(params, stats))
+    before = [p.clone() for p in tstate.model.parameters()]
+    loss, _ = agent.step(tstate, agent.before_train(y), torch.from_numpy(x), torch.from_numpy(y),
+                         draws=draws)
+    assert_states_close(state, tstate)
+    moved = any(not torch.equal(a, b) for a, b in zip(before, tstate.model.parameters()))
+    assert moved == (fill > 0) and (loss.item() > 0) == (fill > 0)
+
+
+@pytest.mark.parametrize("dead_forward", [True, False])
+def test_scr_review_pass_matches_ocl_tpu(dead_forward):
+    """SCR's review epoch: per batch, the dead forward's extra BN fold (or
+    not), then the two-view SupCon step at gradients / 10, each batch with
+    its own augmentation draws (ocl_tpu/agents/review.py's key per batch)."""
+    from test_torch_augment import port_draws as aug_draws
+
+    hp = dict(HP, agent="SCR", review_trick=True, scr_review_dead_forward=dead_forward)
+    j_agent = j_agents["SCR"](j_default_params(**hp))
+    agent = agents["SCR"](default_params(**hp, device="cpu"))
+    params, stats = supcon_weights(24)
+    jbuf, tbuf = make_buffers(MEM, 35, 35, seed=28)
+    key = jax.random.PRNGKey(33)
+    ctx_y = np.arange(N_CLS)
+    state = j_review.review_pass(j_agent, jax_state(j_agent, params, stats, jbuf, key),
+                                 j_agent.before_train(ctx_y))
+    rng, perm_rng = jax.random.split(key)
+    draws = []
+    for _ in range(35 // HP["eps_mem_batch"]):
+        rng, sub = jax.random.split(rng)
+        draws.append(aug_draws(sub, n=HP["eps_mem_batch"]))
+    tstate = port_state(params, stats, tbuf, model=supcon_model(params, stats))
+    review.review_pass(agent, tstate, agent.before_train(ctx_y),
+                       perm=_t(jax.random.permutation(perm_rng, 35)), draws=draws)
+    assert_states_close(state, tstate)
+
+
+def test_error_analysis_eval_matches_ocl_tpu(tmp_path, monkeypatch):
+    """Softmax eval with --error_analysis after two tasks, twice: the four
+    counts, the two logit means, the four head-norm lists and the
+    `confusion` pickle equal ocl_tpu's. Task 2 is not seen yet: its errors
+    are in no count, its labels in the pickle."""
+    import pickle
+
+    from ocl_tpu.data import prepare_test_loaders as j_prepare_test_loaders
+
+    monkeypatch.chdir(tmp_path)
+    hp = dict(HP, agent="ER", error_analysis=True, test_batch=16)
+    j_params = j_default_params(**hp)
+    t_params = default_params(**hp, device="cpu")
+    g = np.random.RandomState(34)
+    tests = []
+    for classes in ([0, 1], [2, 3], [4, 5]):
+        y = np.repeat(classes, 13)
+        tests.append((class_images(y, g), y))
+    params, stats = random_weights(21)
+    state = JTrainState(params=_jnp(params), batch_stats=_jnp(stats), opt_state=None,
+                        buffer=None, agent=None, rng=jax.random.PRNGKey(0))
+    tstate = port_state(params, stats)
+    j_agent, agent = j_agents["ER"](j_params), agents["ER"](t_params)
+    for a in (j_agent, agent):
+        a.task_seen, a.old_labels, a.new_labels_zombie = 2, [0, 1, 2, 3], [2, 3]
+        a.class_task_map = {0: 0, 1: 0, 2: 1, 3: 1}
+    results = []
+    for a, st, loaders in ((j_agent, state, j_prepare_test_loaders(tests, j_params)),
+                           (agent, tstate, prepare_test_loaders(tests, t_params, "cpu"))):
+        accs = [a.evaluate(st, loaders) for _ in range(2)]
+        with open(tmp_path / "confusion", "rb") as fp:
+            results.append((accs, pickle.load(fp)))
+    (j_accs, j_conf), (accs, conf) = results
+    np.testing.assert_array_equal(np.stack(accs), np.stack(j_accs))
+    assert conf == j_conf and len(conf[0]) == len(conf[1]) == 3 * 26
+    assert agent.error_list == j_agent.error_list and len(agent.error_list) == 2
+    no, nn_, oo, on = agent.error_list[0]
+    wrong = [round((1 - a) * 26) for a in accs[0][:2]]
+    assert no + nn_ == wrong[1] and oo + on == wrong[0] and min(no, nn_ + oo + on) >= 0
+    for name in ("new_class_score", "old_class_score", "fc_norm_new", "fc_norm_old",
+                 "bias_norm_new", "bias_norm_old"):
+        assert len(getattr(agent, name)) == 2
+        np.testing.assert_allclose(getattr(agent, name), getattr(j_agent, name), rtol=1e-4,
+                                   err_msg=name)

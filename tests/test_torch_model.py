@@ -1,7 +1,8 @@
 """The port's Reduced ResNet-18 against ocl_tpu.models on the same weights:
 train-mode forward (with and without a row mask), eval forward and features,
-BN running statistics, and one masked-CE SGD step. nf=4 keeps it cheap; the
-JAX side runs as one jitted program.
+BN running statistics, and one masked-CE SGD step; SupConResNet's forward
+and features under each head. nf=4 keeps it cheap; the JAX side runs as one
+jitted program.
 
 Tolerances: rtol 1e-3 / atol 1e-4 (fp32 reduction order differs between XLA
 and torch), atol 1e-5 for BN running statistics, as tests/test_torch_parity.py.
@@ -19,12 +20,13 @@ from ocl_tpu.models import forward_eval as j_forward_eval
 from ocl_tpu.models import forward_train as j_forward_train
 from ocl_tpu.models import init_model
 from ocl_tpu.models.resnet import Reduced_ResNet18 as JReducedResNet18
+from ocl_tpu.models.resnet import SupConResNet as JSupConResNet
 from ocl_tpu.ops.losses import cross_entropy as j_cross_entropy
 from ocl_tpu.optim import setup_opt as j_setup_opt
 from ocl_tpu_torch import interop
 from ocl_tpu_torch.models import features_eval, forward_eval, forward_train
 from ocl_tpu_torch.models.layers import BatchNorm, torch_init_
-from ocl_tpu_torch.models.resnet import Reduced_ResNet18
+from ocl_tpu_torch.models.resnet import Reduced_ResNet18, SupConResNet
 from ocl_tpu_torch.ops.losses import cross_entropy
 from ocl_tpu_torch.optim import setup_opt
 from test_torch_buffer import class_images
@@ -39,13 +41,13 @@ def _leaves(t):
     return jax.tree_util.tree_leaves(t)
 
 
-def random_weights(seed, nf=NF):
-    """(params, batch_stats) numpy pytrees of a Reduced ResNet-18 with torch's
-    default init, its running statistics those of 200 class images (one
-    train-mode fold at momentum 1). Eval-mode features then spread as a
-    trained model's do, and nearest-neighbour orders over them are decided
-    by the data, not by rounding."""
-    model = Reduced_ResNet18(10, nf=nf)
+def random_weights(seed, nf=NF, model=None):
+    """(params, batch_stats) numpy pytrees of a Reduced ResNet-18 (or of
+    `model`) with torch's default init, its running statistics those of 200
+    class images (one train-mode fold at momentum 1). Eval-mode features
+    then spread as a trained model's do, and nearest-neighbour orders over
+    them are decided by the data, not by rounding."""
+    model = model if model is not None else Reduced_ResNet18(10, nf=nf)
     torch_init_(model, torch.Generator().manual_seed(seed))
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
     for bn in bns:
@@ -173,3 +175,45 @@ def test_all_masked_forward_folds_nothing(ref):
     assert all(not p.grad.any() for p in model.parameters())
     forward_train(model, torch.from_numpy(x), torch.from_numpy(mask))
     assert not torch.equal(model.bn1.running_mean, before["bn1.running_mean"])
+
+
+@pytest.mark.parametrize("head", ["mlp", "linear", "None"])
+def test_supcon_resnet_matches_ocl_tpu(head):
+    """SupConResNet's tree (the trunk under `encoder`, no encoder head, the
+    head's Dense layers) maps both ways; its L2-normalised train-mode output
+    (masked), BN statistics, eval output and encoder features equal
+    ocl_tpu's on the same weights."""
+    module = JSupConResNet(dim_in=NF * 8, head=head, nf=NF)
+    params, stats = random_weights(5, model=SupConResNet(dim_in=NF * 8, head=head, nf=NF))
+    shapes = jax.eval_shape(lambda k: init_model(module, k, "synthetic"), jax.random.PRNGKey(0))
+    for ours, theirs in zip((params, stats), shapes):
+        assert jax.tree_util.tree_structure(ours) == jax.tree_util.tree_structure(theirs)
+        assert [a.shape for a in _leaves(ours)] == [a.shape for a in _leaves(theirs)]
+    g = np.random.RandomState(9)
+    x = g.rand(12, 32, 32, 3).astype(np.float32)
+    mask = np.array([1] * 8 + [0] * 4, bool)
+
+    @jax.jit
+    def reference(p, st, x, w):
+        return dict(train=j_forward_train(module, p, st, x, w=w),
+                    eval=j_forward_eval(module, p, st, x),
+                    features=j_features_eval(module, p, st, x))
+
+    want = jax.tree_util.tree_map(np.asarray, reference(params, stats, x, mask))
+    model = SupConResNet(dim_in=NF * 8, head=head, nf=NF)
+    model.load_state_dict(interop.from_jax(params, stats), strict=True)
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    for k, v in interop.from_jax(*interop.to_jax(sd)).items():
+        assert torch.equal(v, sd[k]), k
+    np.testing.assert_allclose(forward_eval(model, torch.from_numpy(x)).numpy(), want["eval"],
+                               **TOL)
+    feats = features_eval(model, torch.from_numpy(x))
+    assert feats.shape == (12, NF * 8)
+    np.testing.assert_allclose(feats.numpy(), want["features"], **TOL)
+    with torch.no_grad():
+        out = forward_train(model, torch.from_numpy(x), torch.from_numpy(mask))
+    assert out.shape == (12, NF * 8 if head == "None" else 128)
+    np.testing.assert_allclose(out.norm(dim=1).numpy(), 1.0, rtol=1e-5)
+    np.testing.assert_allclose(out.numpy(), want["train"][0], **TOL)
+    for a, b in zip(_leaves(interop.to_jax(model.state_dict())[1]), _leaves(want["train"][1])):
+        np.testing.assert_allclose(a, b, **STATS_TOL)

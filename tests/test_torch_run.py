@@ -3,15 +3,18 @@
 * Its flags are ocl_tpu's, plus --device.
 * Its continuum draws the same tasks as ocl_tpu's from a seeded np.random
   stream (tools/parity_vs_reference.py::make_stream).
-* ER + ASER, two-pass ER, MIR, GSS, AGEM, EWC++ and LwF on the CI parity
-  streams land within the band of the committed torch-oracle matrices that
-  ocl_tpu meets (tests/test_reference_parity.py:120-133): |dAvg_End_Acc| <
-  0.05 over seeds 1-5 for ASER; the others over seeds 1-2 at the 2-seed band
-  0.08. The runs take one CPU thread (see test_golden_parity).
+* ER + ASER, two-pass ER, MIR, GSS, AGEM, EWC++, LwF, iCaRL, GDumb and SCR
+  on the CI parity streams land within the band of the committed
+  torch-oracle matrices that ocl_tpu meets
+  (tests/test_reference_parity.py:120-133): |dAvg_End_Acc| < 0.05 over seeds
+  1-5 for ASER (and GDumb, in test_torch_run_gdumb.py); the others over
+  seeds 1-2 at the 2-seed band 0.08. The runs take one CPU thread (see
+  test_golden_parity).
 * MIR: along a parity run, every retrieval picks the rows ocl_tpu's picks
   from the same state and draws.
 * The CLI runs end to end and prints the Avg_End_Acc line, with the default
-  flags (fused ER) and with ER + ASER.
+  flags (fused ER), with ER + ASER, with iCaRL, GDumb and SCR, and with
+  --error_analysis, which writes the `confusion` pickle.
 * What is still not ported raises NotImplementedError.
 """
 
@@ -70,11 +73,11 @@ def run_port_side(cfg, tasks, tests, seed):
     """Accuracy matrix of one port run on a parity stream (the counterpart of
     tools/parity_vs_reference.py::run_ocl_side)."""
     hp = G.CI_HP
-    params = default_params(
-        data="synthetic", cl_type="nc", num_tasks=len(tasks), verbose=False,
-        num_runs=1, nf=hp["nf"], mem_size=hp["mem_size"],
-        eps_mem_batch=hp["eps_mem_batch"], learning_rate=hp["lr"],
-        batch=hp["batch"], device="cpu", **cfg)
+    kw = dict(data="synthetic", cl_type="nc", num_tasks=len(tasks), verbose=False, num_runs=1,
+              nf=hp["nf"], mem_size=hp["mem_size"], eps_mem_batch=hp["eps_mem_batch"],
+              learning_rate=hp["lr"], batch=hp["batch"], device="cpu")
+    kw.update(cfg)   # a config's own values win (SCR's eps_mem_batch)
+    params = default_params(**kw)
     agent = agents[params.agent](params)
     state = agent.init_state(seed)
     loaders = prepare_test_loaders(tests, params, "cpu")
@@ -87,7 +90,9 @@ def run_port_side(cfg, tasks, tests, seed):
 
 GOLDEN_PINS = [("ASER", G.CI_SEEDS, 0.05), ("ER", (1, 2), 0.08), ("MIR", (1, 2), 0.08),
                ("GSS", (1, 2), 0.08), ("AGEM", (1, 2), 0.08), ("EWC", (1, 2), 0.08),
-               ("LWF", (1, 2), 0.08)]
+               ("LWF", (1, 2), 0.08), ("ICARL", (1, 2), 0.08), ("SCR", (1, 2), 0.08)]
+# tested in test_torch_run_gdumb.py, which says why five seeds
+GDUMB_PIN = ("GDUMB", G.CI_SEEDS, 0.05)
 
 
 @contextlib.contextmanager
@@ -179,11 +184,16 @@ def test_mir_retrieval_matches_ocl_tpu_along_a_parity_run():
     assert sum(valid for _, valid in calls) == len(calls) - 1   # all but the first step
 
 
-def run_cli(*flags):
+def run_cli(*flags, cwd=REPO):
     cmd = [sys.executable, "-m", "ocl_tpu_torch.general_main", "--device", "cpu",
            "--data", "synthetic", "--agent", "ER", "--nf", "4", "--num_tasks", "2",
            "--synthetic_size", "60", "--mem_size", "50", "--num_runs", "1", *flags]
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    # one intra-op thread: under a loaded host (the parallel test run) torch's
+    # default of one thread per core spins against the other processes and
+    # an ER + ASER run of seconds ran past the timeout
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     last = [line for line in proc.stdout.splitlines() if "Avg_End_Acc" in line]
     assert last and last[-1].startswith("----------- Avg_End_Acc"), proc.stdout[-3000:]
@@ -200,9 +210,27 @@ def test_cli_runs_default_er():
     run_cli()
 
 
+@pytest.mark.parametrize("flags", [["--agent", "ICARL"], ["--agent", "GDUMB", "--mem_epoch", "2"],
+                                   ["--agent", "SCR"], ["--agent", "SCR", "--review_trick", "True"]],
+                         ids=["icarl", "gdumb", "scr", "scr-review"])
+def test_cli_runs_icarl_gdumb_scr(flags):
+    run_cli(*flags)
+
+
+def test_cli_error_analysis_writes_confusion(tmp_path):
+    """--error_analysis with ER: the confusion pickle lands in the working
+    directory and holds one (task, predicted task) pair per test image."""
+    import pickle
+
+    run_cli("--error_analysis", "True", cwd=tmp_path)
+    with open(tmp_path / "confusion", "rb") as fp:
+        correct_lb, predict_lb = pickle.load(fp)
+    assert len(correct_lb) == len(predict_lb) > 0
+    assert set(correct_lb) == {0, 1} and set(predict_lb) <= {-1, 0, 1}
+
+
 @pytest.mark.parametrize("flags", [
-    dict(agent="ICARL"), dict(agent="GDUMB"), dict(agent="SCR"), dict(agent="CNDPM"),
-    dict(error_analysis=True), dict(compute_dtype="bf16"), dict(cl_type="ni"),
+    dict(agent="CNDPM"), dict(compute_dtype="bf16"), dict(cl_type="ni"),
 ])
 def test_unported_options_raise(flags):
     from ocl_tpu_torch.experiment.run import multiple_run
@@ -226,7 +254,7 @@ def test_debug_nans_raises_on_non_finite_loss():
 
 def thread_report(threads=(1, 2, 4, 8)):
     """|golden - port| of each pin at each thread count, one run at a time."""
-    for name, seeds, band in GOLDEN_PINS:
+    for name, seeds, band in GOLDEN_PINS + [GDUMB_PIN]:
         for n in threads:
             with torch_threads(n):
                 ref_acc, port_acc = golden_gap(name, seeds)
@@ -235,5 +263,20 @@ def thread_report(threads=(1, 2, 4, 8)):
                 flush=True)
 
 
+def seed_report(names):
+    """Golden and port Avg_End_Acc of each configuration in `names`, seed by
+    seed over seeds 1-5, on one thread."""
+    with torch_threads(1):
+        for name in names:
+            for seed in G.CI_SEEDS:
+                ref_acc, port_acc = golden_gap(name, (seed,))
+                print("{} seed {}: golden {:.4f} port {:.4f}".format(name, seed, ref_acc, port_acc),
+                      flush=True)
+
+
 if __name__ == "__main__":
-    thread_report()
+    # no argument: the thread report; "seeds NAME ...": the per-seed report
+    if sys.argv[1:2] == ["seeds"]:
+        seed_report(sys.argv[2:])
+    else:
+        thread_report()
