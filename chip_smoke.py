@@ -54,6 +54,17 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                a temporary working directory: the four counts must add up to
                the wrong predictions on the task they cover, and the
                `confusion` pickle must hold one label per test image.
+  17. cndpm  — CN-DPM (config/agent/cndpm/cndpm.yml) at the published widths,
+               K 10 and 16 z samples, two tasks of the same stream: task 0
+               fills the 1,000-sample STM in its 100th step, so a sleep of
+               4,000 VAE and 1,000 classifier steps (batch 50) runs before
+               task 0 is evaluated. It prints the accuracies, the experts
+               born, the sleeps' seconds, the wake step's host-clock time,
+               and launches and device ms of 5 wake steps and of 20 VAE and
+               20 classifier sleep steps under torch.profiler; at least one
+               expert born, no saturated sleep, finite losses, sched_t >= 2
+               for every born expert, task 0 above 0.5 after task 0, and no
+               pairwise_sqdist launch.
 Then one JSON line of kernel figures, and last the result line
 {"ok": true, "device": {...}}.
 """
@@ -124,6 +135,15 @@ SCR = ("scr", "SCR (scr_1k: eps_mem_batch 100, temp 0.1, review_trick, fused vie
 GDUMB_FLAGS = ["--agent", "GDUMB", "--batch", "16", "--mem_epoch", "30", "--clip", "10.0",
                "--minlr", "0.0005"]
 GDUMB_PROFILE_STEPS = 10
+# phase 17: CN-DPM, config/agent/cndpm/cndpm.yml with config/general_1.yml
+# (SGD, batch 10) at the published widths (models/ndpm_vars.py), K 10 and
+# 16 z samples, with the published 4,000 / 1,000-step sleep. --debug_nans
+# makes the agent raise on a non-finite wake loss.
+CNDPM_FLAGS = ["--agent", "CNDPM", "--optimizer", "SGD", "--learning_rate", "0.1",
+               "--stm_capacity", "1000", "--weight_decay", "1e-5", "--classifier_chill", "0.01",
+               "--log_alpha", "-300", "--max_experts", "10", "--debug_nans", "True"]
+CNDPM_WAKE_PROFILE_STEPS = 5
+CNDPM_SLEEP_PROFILE_STEPS = 20
 
 
 class CheckFailed(RuntimeError):
@@ -541,6 +561,118 @@ def run_error_analysis(torch, agent, state, loaders):
     return {"counts": [no, nn_, oo, on], "seconds": ea_s}
 
 
+def profile_sleep(torch, agent, state, steps_g, steps_d):
+    """Launches and device ms a sleep step of one profiled sleep of
+    `steps_g` VAE and `steps_d` classifier steps on the full STM. It trains
+    the next free slot, so it runs after the phase's accuracies are read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ocl_tpu_torch.tools.kernel_timing import kernel_times
+
+    agent.params.sleep_step_g, agent.params.sleep_step_d = steps_g, steps_d
+    state.agent["stm_count"] = agent.stm_capacity
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        agent.sleep(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = kernel_times(prof)
+    steps = steps_g + steps_d
+    return {"kernels": len(kernels) / steps,
+            "device_ms": sum(us for _, us in kernels) / 1e3 / steps,
+            "wall_ms": wall * 1e3 / steps}
+
+
+def run_cndpm_phase(torch, device, pairwise_sqdist):
+    """Phase 17: two tasks of CN-DPM. Task 0 fills the STM (1,000 images)
+    in its 100th step, so a sleep at the full budget runs before task 0 is
+    evaluated. The sleeps are timed on the host clock with a sync, and the
+    wake step is the rest of the training time over the wake steps. The
+    first CNDPM_WAKE_PROFILE_STEPS wake steps of task 1 run under
+    torch.profiler (outside those times) and, after the accuracies, one
+    sleep of CNDPM_SLEEP_PROFILE_STEPS VAE steps and one of as many
+    classifier steps."""
+    import numpy as np
+
+    from ocl_tpu_torch.config import build_parser, finalize
+    from ocl_tpu_torch.data import continuum, prepare_test_loaders
+    from ocl_tpu_torch.models import ndpm_vars
+    from ocl_tpu_torch.registry import agents
+
+    params = finalize(build_parser().parse_args(ER_FLAGS + CNDPM_FLAGS))
+    np.random.seed(params.seed)
+    stream = continuum(params.data, params.cl_type, params)
+    stream.new_run()
+    agent = agents["CNDPM"](params)
+    state = agent.init_state(params.seed)
+    loaders = prepare_test_loaders(stream.test_data(), params, device)
+    sleep = agent.sleep
+    sleeps = []
+
+    def timed_sleep(state, draws=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sleep(state, draws)
+        torch.cuda.synchronize()
+        sleeps.append(time.perf_counter() - t0)
+
+    agent.sleep = timed_sleep
+    pairwise_sqdist.launches = 0
+    accs, train_s, wake_steps, n_tasks = [], 0.0, 0, 2
+    for task in range(n_tasks):
+        x, y, _ = next(stream)
+        ctx = agent.before_train(y)
+        if task == 1:
+            # the first steps of task 1, profiled and left out of the times
+            n = CNDPM_WAKE_PROFILE_STEPS * params.batch
+            wake = profile_steps(torch, agent, state, ctx, x[:n], y[:n], CNDPM_WAKE_PROFILE_STEPS)
+            x, y = x[n:], y[n:]
+        t0 = time.time()
+        state = agent.train_task(state, ctx, x, y)
+        state = agent.after_train(state, ctx)
+        torch.cuda.synchronize()
+        train_s += time.time() - t0
+        wake_steps += len(y) // params.batch
+        accs.append(agent.evaluate(state, loaders))
+    launches = pairwise_sqdist.launches
+    ag = state.agent
+    born, saturated = ag["active"], ag["saturated_sleeps"]
+    sched_t = ag["sched_t"][:born].tolist()
+    acc0, latest = float(accs[0][0]), float(accs[-1][n_tasks - 1])
+    wake_ms = (train_s - sum(sleeps)) * 1e3 / wake_steps
+    steps_g = int(getattr(params, "sleep_step_g", ndpm_vars.SLEEP_STEP_G))
+    steps_d = int(getattr(params, "sleep_step_d", ndpm_vars.SLEEP_STEP_D))
+    agent.sleep = sleep
+    sleep_g = profile_sleep(torch, agent, state, CNDPM_SLEEP_PROFILE_STEPS, 0)
+    sleep_d = profile_sleep(torch, agent, state, 0, CNDPM_SLEEP_PROFILE_STEPS)
+    print("[cndpm] CN-DPM (cndpm.yml: stm_capacity 1000, SGD lr 0.1, chill 0.01, log_alpha -300) "
+          "K {}, z samples {}, sleep {} / {} steps at batch 50, {} tasks: accuracy after each task "
+          "on tasks 0-{} {}; experts born {}, saturated sleeps {}, sched_t {}; sleeps {} s; wake "
+          "step {:.1f} ms on the host clock over {} steps; pairwise_sqdist launches {}".format(
+              agent.K, ndpm_vars.VAE_Z_SAMPLES, steps_g, steps_d, n_tasks, n_tasks - 1,
+              [[round(float(a), 4) for a in row[:n_tasks]] for row in accs], born, saturated,
+              sched_t, [round(t, 2) for t in sleeps], wake_ms, wake_steps, launches))
+    print("[cndpm] profiled: {} wake steps of task 1 {:.0f} launches, {:.3f} ms device, "
+          "{:.1f} ms host clock a step; {} VAE sleep steps {:.0f} launches, {:.3f} ms device, "
+          "{:.2f} ms host clock a step; {} classifier sleep steps {:.0f} launches, {:.3f} ms "
+          "device, {:.2f} ms host clock a step".format(
+              CNDPM_WAKE_PROFILE_STEPS, wake["kernels"], wake["device_ms"], wake["wall_ms"],
+              CNDPM_SLEEP_PROFILE_STEPS, sleep_g["kernels"], sleep_g["device_ms"],
+              sleep_g["wall_ms"], CNDPM_SLEEP_PROFILE_STEPS, sleep_d["kernels"],
+              sleep_d["device_ms"], sleep_d["wall_ms"]))
+    require(born >= 1, "cndpm: no expert was born")
+    require(saturated == 0, "cndpm: {} saturated sleep(s)".format(saturated))
+    require(all(t >= 2 for t in sched_t), "cndpm: a born expert's sched_t {} < 2".format(sched_t))
+    require(all(np.isfinite(row).all() for row in accs), "cndpm: a non-finite accuracy")
+    require(acc0 > 0.5, "cndpm: task 0 accuracy after task 0 {} is not above 0.5".format(acc0))
+    require(launches == 0, "cndpm: {} pairwise_sqdist launches".format(launches))
+    return {"accs": [[float(a) for a in row[:n_tasks]] for row in accs], "acc0": acc0,
+            "latest_acc": latest, "born": born, "saturated": saturated, "sleep_s": sleeps,
+            "wake_ms": wake_ms, "launches": launches, "wake": wake, "sleep_g": sleep_g,
+            "sleep_d": sleep_d}
+
+
 def main():
     import torch
 
@@ -663,6 +795,11 @@ def main():
 
     # 16. error analysis on phase 6's model
     family["errors"] = run_error_analysis(torch, *runs["fused"])
+
+    # 17. CN-DPM
+    t0 = time.time()
+    family["cndpm"] = run_cndpm_phase(torch, device, pairwise_sqdist)
+    family["cndpm"]["phase_s"] = time.time() - t0
     print("[family] seconds a phase: {}".format(
         ", ".join("{} {:.1f}".format(tag, f["phase_s"]) for tag, f in family.items()
                   if "phase_s" in f)))

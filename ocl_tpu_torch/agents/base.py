@@ -49,7 +49,7 @@ class TaskCtx:
 @dataclass
 class TrainState:
     model: torch.nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: Any  # a torch.optim.Optimizer; CN-DPM's per-slot state dict
     buffer: BufferState | None
     generator: torch.Generator  # on the device; every random draw of a run
     # agent-specific state, or None: the distillation teacher ("teacher", a

@@ -146,7 +146,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--nf", dest="nf", default=20, type=int,
                         help="backbone width (reference fixes nf=20; smaller for CPU tests)")
     parser.add_argument("--max_experts", dest="max_experts", default=10, type=int,
-                        help="CN-DPM expert-slot capacity (not ported yet)")
+                        help="CN-DPM expert-slot capacity")
     parser.add_argument("--parallel_runs", dest="parallel_runs", default=False,
                         type=boolean_string,
                         help="train all runs as one program (not ported yet)")

@@ -22,6 +22,14 @@ teacher, EWC's parameter-shaped trees and flags), and `adam_from_jax` /
 `adam_to_jax` carry Adam's moments and step count, between optax's
 `ScaleByAdamState` (count, mu, nu) and torch.optim.Adam's per-parameter
 `step`, `exp_avg`, `exp_avg_sq`.
+
+`ndpm_from_jax` / `ndpm_to_jax` carry CN-DPM's mixture (the stacked `vae`
+and `cls` trees and the dummy expert) between ocl_tpu's pytree and the
+state dict of `ocl_tpu_torch.models.ndpm.NDPM`: convs HWIO -> OIHW, the
+decoder's transposed convs HWIO -> (I, O, kh, kw) flipped along H and W, and
+`enc3_w`'s rows and `dec3_w`'s columns (and `dec3_b`) from (h, w, C) to
+(C, h, w) order; dense kernels stay [in, out]. `cndpm_state_from_jax` /
+`cndpm_state_to_jax` carry its agent dict and per-slot optimizer state.
 """
 
 from __future__ import annotations
@@ -192,3 +200,157 @@ def adam_to_jax(optimizer, model) -> dict:
     return {"count": np.int32(int(states[0]["step"])),
             "mu": to_jax({n: s["exp_avg"] for (n, _), s in zip(named, states)})[0],
             "nu": to_jax({n: s["exp_avg_sq"] for (n, _), s in zip(named, states)})[0]}
+
+
+# ------------------------------------------------------------------ CN-DPM
+
+_NDPM_CONV = ("enc1_w", "enc2_w", "l0_w")
+_NDPM_DECONV = ("dec2_w", "dec1_w")
+
+
+def _ndpm_kind(name):
+    if name in _NDPM_CONV or (name.startswith("l") and name.endswith(("c1_w", "c2_w", "ds_w"))):
+        return "conv"
+    if name in _NDPM_DECONV:
+        return "deconv"
+    if name in ("enc3_w", "dec3_w", "dec3_b"):
+        return name
+    return "plain"
+
+
+def _cells(rows, channels):
+    """Side of the square (h, w) grid of `rows` = h * w * channels."""
+    side = int(round((rows // channels) ** 0.5))
+    assert side * side * channels == rows, (rows, channels)
+    return side
+
+
+def _ndpm_leaf_from_jax(name, a, tree):
+    """One stacked leaf [K, ...] of ocl_tpu's layout -> the port's."""
+    kind = _ndpm_kind(name)
+    K = a.shape[0]
+    if kind == "conv":
+        return np.transpose(a, (0, 4, 3, 1, 2))
+    if kind == "deconv":
+        return np.transpose(a, (0, 3, 4, 1, 2))[..., ::-1, ::-1]
+    if kind == "enc3_w":       # rows (h, w, 2 Cv) -> (2 Cv, h, w)
+        c = 2 * tree["enc2_w"].shape[-2]
+        s = _cells(a.shape[1], c)
+        return a.reshape(K, s, s, c, -1).transpose(0, 3, 1, 2, 4).reshape(a.shape)
+    if kind == "dec3_w":       # columns (h, w, 2 nfb) -> (2 nfb, h, w)
+        c = tree["dec2_w"].shape[-2]
+        s = _cells(a.shape[2], c)
+        return a.reshape(K, -1, s, s, c).transpose(0, 1, 4, 2, 3).reshape(a.shape)
+    if kind == "dec3_b":
+        c = tree["dec2_w"].shape[-2]
+        s = _cells(a.shape[1], c)
+        return a.reshape(K, s, s, c).transpose(0, 3, 1, 2).reshape(a.shape)
+    return a
+
+
+def _ndpm_leaf_to_jax(name, a, tree):
+    """Inverse of `_ndpm_leaf_from_jax`; `tree` holds the port's leaves."""
+    kind = _ndpm_kind(name)
+    K = a.shape[0]
+    if kind == "conv":
+        return np.transpose(a, (0, 3, 4, 2, 1))
+    if kind == "deconv":
+        return np.transpose(a[..., ::-1, ::-1], (0, 3, 4, 1, 2))
+    if kind == "enc3_w":
+        c = 2 * tree["enc2_w"].shape[2]
+        s = _cells(a.shape[1], c)
+        return a.reshape(K, c, s, s, -1).transpose(0, 2, 3, 1, 4).reshape(a.shape)
+    if kind == "dec3_w":
+        c = tree["dec2_w"].shape[1]
+        s = _cells(a.shape[2], c)
+        return a.reshape(K, -1, c, s, s).transpose(0, 1, 3, 4, 2).reshape(a.shape)
+    if kind == "dec3_b":
+        c = tree["dec2_w"].shape[1]
+        s = _cells(a.shape[1], c)
+        return a.reshape(K, c, s, s).transpose(0, 2, 3, 1).reshape(a.shape)
+    return a
+
+
+def _ndpm_tree(tree, convert, stacked=True):
+    """Convert every leaf of one flat CN-DPM tree (a dummy's, unstacked,
+    through a leading axis of 1); `convert` reads shapes from the tree."""
+    ref = tree if stacked else {k: np.asarray(v)[None] for k, v in tree.items()}
+    out = {}
+    for name, value in tree.items():
+        a = np.asarray(value, np.float32)
+        a = convert(name, a if stacked else a[None], ref)
+        out[name] = np.ascontiguousarray(a if stacked else a[0])
+    return out
+
+
+def ndpm_from_jax(params) -> dict:
+    """ocl_tpu's CN-DPM pytree (numpy leaves) -> state dict of `NDPM`."""
+    sd = {}
+    for part, tree, stacked in (("vae", params["vae"], True), ("cls", params["cls"], True),
+                                ("dummy_vae", params["dummy"]["vae"], False),
+                                ("dummy_cls", params["dummy"]["cls"], False)):
+        for name, a in _ndpm_tree(tree, _ndpm_leaf_from_jax, stacked).items():
+            sd[part + "." + name] = torch.from_numpy(a.copy())
+    return sd
+
+
+def ndpm_to_jax(state_dict) -> dict:
+    """State dict of `NDPM` -> ocl_tpu's CN-DPM pytree of numpy arrays."""
+    parts = {}
+    for key, value in state_dict.items():
+        part, name = key.split(".")
+        parts.setdefault(part, {})[name] = value.detach().cpu().numpy()
+    conv = {part: _ndpm_tree(tree, _ndpm_leaf_to_jax, not part.startswith("dummy"))
+            for part, tree in parts.items()}
+    return {"vae": conv["vae"], "cls": conv["cls"],
+            "dummy": {"vae": conv["dummy_vae"], "cls": conv["dummy_cls"]}}
+
+
+def _opt_part_from_jax(opt, device):
+    if not opt:
+        return {}
+    return {"m": {k: torch.from_numpy(v.copy()).to(device)
+                  for k, v in _ndpm_tree(opt["m"], _ndpm_leaf_from_jax).items()},
+            "v": {k: torch.from_numpy(v.copy()).to(device)
+                  for k, v in _ndpm_tree(opt["v"], _ndpm_leaf_from_jax).items()},
+            "t": torch.tensor(np.asarray(opt["t"]), dtype=torch.int64, device=device)}
+
+
+def _opt_part_to_jax(opt):
+    if not opt:
+        return {}
+    m = {k: v.cpu().numpy() for k, v in opt["m"].items()}
+    v = {k: t.cpu().numpy() for k, t in opt["v"].items()}
+    return {"m": _ndpm_tree(m, _ndpm_leaf_to_jax), "v": _ndpm_tree(v, _ndpm_leaf_to_jax),
+            "t": opt["t"].cpu().numpy().astype(np.int32)}
+
+
+def cndpm_state_from_jax(ag, opt_state, device="cpu"):
+    """ocl_tpu's CN-DPM agent dict and opt_state ({"g", "d"}, each {m, v, t}
+    under Adam, {} under SGD; numpy leaves) -> the port's (agent dict,
+    optimizer dict). `active`, `stm_count` and `saturated_sleeps` become
+    Python ints; `eval_seed` is the port's own and is left out."""
+    agent = {
+        "log_counts": torch.tensor(np.asarray(ag["log_counts"], np.float32), device=device),
+        "active": int(np.asarray(ag["active"])),
+        "stm_x": torch.tensor(np.asarray(ag["stm_x"], np.float32), device=device),
+        "stm_y": torch.tensor(np.asarray(ag["stm_y"]), dtype=torch.int64, device=device),
+        "stm_count": int(np.asarray(ag["stm_count"])),
+        "saturated_sleeps": int(np.asarray(ag["saturated_sleeps"])),
+        "sched_t": torch.tensor(np.asarray(ag["sched_t"]), dtype=torch.int64, device=device),
+    }
+    opt = {part: _opt_part_from_jax(opt_state[part], device) for part in ("g", "d")}
+    return agent, opt
+
+
+def cndpm_state_to_jax(agent, opt):
+    """The port's CN-DPM (agent dict, optimizer dict) -> ocl_tpu's agent
+    dict and opt_state of numpy arrays."""
+    ag = {"log_counts": agent["log_counts"].cpu().numpy(),
+          "active": np.int32(agent["active"]),
+          "stm_x": agent["stm_x"].cpu().numpy(),
+          "stm_y": agent["stm_y"].cpu().numpy().astype(np.int32),
+          "stm_count": np.int32(agent["stm_count"]),
+          "saturated_sleeps": np.int32(agent["saturated_sleeps"]),
+          "sched_t": agent["sched_t"].cpu().numpy().astype(np.int32)}
+    return ag, {part: _opt_part_to_jax(opt[part]) for part in ("g", "d")}

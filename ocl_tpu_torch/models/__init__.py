@@ -1,7 +1,7 @@
 """Model construction and apply helpers (counterpart of ocl_tpu/models/__init__.py).
 
-`setup_architecture` builds the Reduced ResNet-18 per dataset, and
-SupConResNet for SCR. The JAX
+`setup_architecture` builds the Reduced ResNet-18 per dataset,
+SupConResNet for SCR, and CN-DPM's expert mixture (`models/ndpm.py`). The JAX
 package's pure `forward_train(module, params, stats, x, w)` becomes
 `forward_train(model, x, w)`: the model holds its parameters, and the
 train-mode forward folds the batch's BN statistics into the model's running
@@ -18,6 +18,7 @@ import torch
 
 from ocl_tpu_torch.config import input_size_match, n_classes_match
 from ocl_tpu_torch.models.layers import torch_init_
+from ocl_tpu_torch.models.ndpm import NDPM
 from ocl_tpu_torch.models.resnet import Reduced_ResNet18, SupConResNet
 
 # Pooled spatial cells of the Reduced ResNet-18 trunk per input resolution;
@@ -32,9 +33,10 @@ def feature_dim_for(data: str, nf: int = 20) -> int:
 def setup_architecture(params, generator: torch.Generator, device) -> torch.nn.Module:
     """Reduced ResNet-18 for `params.data` (SupConResNet for SCR), its
     weights drawn from `generator` (a CPU generator, so a seed gives the same
-    weights on every device) and moved to `device`."""
+    weights on every device) and moved to `device`. For CNDPM, the expert
+    mixture of `params.max_experts` slots (`ndpm.NDPM`)."""
     if params.agent == "CNDPM":
-        raise NotImplementedError("the CNDPM architecture is not ported yet")
+        return NDPM(params, generator).to(device)
     if getattr(params, "compute_dtype", "fp32") != "fp32":
         raise NotImplementedError("the port computes in fp32 only so far")
     nf = getattr(params, "nf", 20)

@@ -1,7 +1,7 @@
 """Name registries of the port (counterpart of ocl_tpu/registry.py).
 
-Entries resolve lazily, as in the JAX registry. Only the names the port has
-so far are registered; the runner names what is missing (CNDPM).
+Entries resolve lazily, as in the JAX registry. Every agent of the
+reference is registered; the runner names any agent that is not.
 """
 
 from __future__ import annotations
@@ -29,4 +29,5 @@ agents = {
     "ICARL": _lazy("ocl_tpu_torch.agents.icarl", "Icarl"),
     "GDUMB": _lazy("ocl_tpu_torch.agents.gdumb", "Gdumb"),
     "SCR": _lazy("ocl_tpu_torch.agents.scr", "SupContrastReplay"),
+    "CNDPM": _lazy("ocl_tpu_torch.agents.cndpm", "Cndpm"),
 }

@@ -28,7 +28,7 @@ print(len(names), bad)
 def test_port_imports_no_jax_and_no_ocl_tpu():
     names = [m.name for m in pkgutil.walk_packages(ocl_tpu_torch.__path__, "ocl_tpu_torch.")]
     for name in ("buffer.gss", "agents.lwf", "agents.icarl", "agents.gdumb", "agents.scr",
-                 "ops.augment", "utils.meters"):
+                 "ops.augment", "utils.meters", "agents.cndpm", "models.ndpm", "models.ndpm_vars"):
         assert "ocl_tpu_torch." + name in names, name
     proc = subprocess.run([sys.executable, "-c", CHECK], cwd=REPO, capture_output=True,
                           text=True, timeout=300)

@@ -112,7 +112,9 @@ def golden_gap(name, seeds):
         ref_rows.append(np.load(G.golden_path(name, seed)))
         tasks, tests = pv.make_stream(seed, G.CI_STREAM["per_class"],
                                       G.CI_STREAM["difficulty"], G.CI_STREAM["num_tasks"])
-        port_rows.append(run_port_side(dict(G.GOLDEN_CONFIGS[name]), tasks, tests, seed))
+        # ocl_tpu's pins add the ocl-only flags (CN-DPM's CI sleep budget)
+        cfg = dict(G.GOLDEN_CONFIGS[name], **G.OCL_EXTRA.get(name, {}))
+        port_rows.append(run_port_side(cfg, tasks, tests, seed))
     return pv.summarize(ref_rows)[0], pv.summarize(port_rows)[0]
 
 
@@ -230,7 +232,7 @@ def test_cli_error_analysis_writes_confusion(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    dict(agent="CNDPM"), dict(compute_dtype="bf16"), dict(cl_type="ni"),
+    dict(buffer_tracker=True), dict(compute_dtype="bf16"), dict(cl_type="ni"),
 ])
 def test_unported_options_raise(flags):
     from ocl_tpu_torch.experiment.run import multiple_run
