@@ -65,6 +65,37 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                expert born, no saturated sleep, finite losses, sched_t >= 2
                for every born expert, task 0 above 0.5 after task 0, and no
                pairwise_sqdist launch.
+18-20.     — the experiment layer at nf 20, batch 10, on the synthetic stream,
+             each phase in a temporary working directory holding a copy of
+             config/global.yml (the runner writes result/ and tables/ under
+             it), each cut printed:
+  18. resume — config/general_1.yml + synthetic_nc.yml +
+               config_CVPR/agent/aser/aser_1k_cifar100.yml (ER + ASER)
+               through the YAML CLI (ocl_tpu_torch.main_config), cut to 1
+               run, 3 tasks, 200 images a class: uninterrupted; with
+               --ckpt_dir and a crash inside train_learner in task 2; then
+               resumed. Every tensor, the generator's and the host's state
+               restored from the checkpoint must equal what was saved, bit
+               for bit; the resumed accuracy matrix must match the
+               uninterrupted one within 0.02 in every entry (the largest gap
+               is printed); pairwise_sqdist must launch after the restore;
+  19. tune   — the tuner (ocl_tpu_torch.main_tune and
+               experiment/tune.py::multiple_run_tune) on general_1 +
+               synthetic_nc + config/agent/er/er_1k.yml over learning_rate
+               {0.05, 0.1}, cut to 1 run, num_val 1, num_runs_val 1, 3
+               tasks, 100 images a class; once more with --train_val True.
+               The pickles' keys and shapes, the CSV's rows and a best point
+               from the grid are required;
+  20. modes  — offline: config/general_offline_1.yml + synthetic_nc +
+               config/agent/er/offline.yml (mem_size 0), cut to 1 run, 3
+               tasks, 200 images a class and 10 of its 70 epochs,
+               Avg_End_Acc above 0.5; NI: synthetic_noise.yml, then
+               synthetic_occlusion.yml, with er_1k.yml, their first 3
+               factors (3 tasks), 300 images a class, --store and
+               --buffer_tracker: each pickle's acc_array [1, 3, 3], a
+               tracker line a task and no MISMATCH, and the undistorted
+               task 0 above 0.5 after task 0 (the later, distorted tasks'
+               accuracies are printed, not gated).
 Then one JSON line of kernel figures, and last the result line
 {"ok": true, "device": {...}}.
 """
@@ -77,6 +108,7 @@ import json
 import math
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -144,6 +176,15 @@ CNDPM_FLAGS = ["--agent", "CNDPM", "--optimizer", "SGD", "--learning_rate", "0.1
                "--log_alpha", "-300", "--max_experts", "10", "--debug_nans", "True"]
 CNDPM_WAKE_PROFILE_STEPS = 5
 CNDPM_SLEEP_PROFILE_STEPS = 20
+# phases 18-20: the repository's recipes, cut as printed
+REPO = os.path.dirname(os.path.abspath(__file__))
+GENERAL = "config/general_1.yml"
+GENERAL_OFFLINE = "config/general_offline_1.yml"
+SYNTHETIC = "config/data/synthetic/synthetic_{}.yml"
+ASER_RECIPE = "config_CVPR/agent/aser/aser_1k_cifar100.yml"
+ER_RECIPE = "config/agent/er/er_1k.yml"
+OFFLINE_RECIPE = "config/agent/er/offline.yml"
+RESUME_GAP = 0.02
 
 
 class CheckFailed(RuntimeError):
@@ -673,6 +714,298 @@ def run_cndpm_phase(torch, device, pairwise_sqdist):
             "sleep_d": sleep_d}
 
 
+@contextlib.contextmanager
+def experiment_dir():
+    """A temporary working directory holding a copy of config/global.yml,
+    under which the runner writes result/ and tables/."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "config"))
+        shutil.copy(os.path.join(REPO, "config", "global.yml"), os.path.join(tmp, "config"))
+        os.chdir(tmp)
+        try:
+            yield tmp
+        finally:
+            os.chdir(cwd)
+
+
+def cut_recipe(src, name, cuts, extra=()):
+    """A copy of the recipe `src` (relative to the repository) in the working
+    directory, each `old: new` text replacement of `cuts` made and the
+    `extra` (key, value) lines added to its parameters; returns its path."""
+    with open(os.path.join(REPO, src)) as f:
+        text = f.read()
+    for old, new in cuts.items():
+        require(old in text, "{} has no {!r} to cut".format(src, old))
+        text = text.replace(old, new)
+    text += "".join("  {}: {}\n".format(k, v) for k, v in extra)
+    with open(name, "w") as f:
+        f.write(text)
+    return os.path.abspath(name)
+
+
+def quietly(fn, *args, **kwargs):
+    """fn(*args, **kwargs) with its standard output captured; returns (its
+    result, the output). On an error the output's tail goes to stderr."""
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            return fn(*args, **kwargs), out.getvalue()
+    except Exception:
+        sys.stderr.write(out.getvalue()[-4000:])
+        raise
+
+
+def run_resume_phase(torch, pairwise_sqdist, card):
+    """Phase 18: ER + ASER from its recipes through the YAML CLI,
+    uninterrupted; with --ckpt_dir, crashing in task 2; resumed."""
+    import numpy as np
+
+    import ocl_tpu_torch.experiment.run as run_mod
+    from ocl_tpu_torch.main_config import build_parser, main as config_main
+    from ocl_tpu_torch.utils import checkpoint
+
+    matrices, verified = [], {}
+    compute_performance, new_agent = run_mod.compute_performance, run_mod._new_agent_and_state
+    load_checkpoint = checkpoint.load_checkpoint
+
+    def recorded(acc):
+        matrices.append(np.array(acc))
+        return compute_performance(acc)
+
+    def crashing(params, seed):
+        agent, state = new_agent(params, seed)
+        train_learner, calls = agent.train_learner, {"n": 0}
+
+        def train(state, x, y):
+            calls["n"] += 1
+            if calls["n"] == 3:
+                raise KeyboardInterrupt("a crash in task 2")
+            return train_learner(state, x, y)
+
+        agent.train_learner = train
+        return agent, state
+
+    def verified_load(path, target):
+        state, meta = load_checkpoint(path, target)
+        saved = checkpoint.load_state_file(path, meta)
+        verified.update(task=meta["task"], mismatches=checkpoint.mismatches(
+            checkpoint.pack_state(state), saved), tensors=count_tensors(torch, saved),
+            host=saved["host"] == state.host.getstate(),
+            generator=torch.equal(saved["generator"], state.generator.get_state()))
+        pairwise_sqdist.launches = 0     # from here on: the launches after the restore
+        return state, meta
+
+    with experiment_dir():
+        cuts = {"num_runs: 5": "num_runs: 1"}
+        general = cut_recipe(GENERAL, "general.yml", cuts)
+        general_ckpt = cut_recipe(GENERAL, "general_ckpt.yml", cuts, [("ckpt_dir", "ckpt")])
+        data = cut_recipe(SYNTHETIC.format("nc"), "data.yml", {"num_tasks: 5": "num_tasks: 3"},
+                          [("synthetic_size", 200)])
+        print("[resume] {} + {} + {}, cut: num_runs 5 -> 1, num_tasks 5 -> 3, synthetic_size "
+              "2000 -> 200 a class (60 steps a task); nf 20, batch 10".format(
+                  GENERAL, SYNTHETIC.format("nc"), ASER_RECIPE))
+
+        def args(general_file):
+            return build_parser().parse_args(["--general", general_file, "--data", data, "--agent",
+                                              os.path.join(REPO, ASER_RECIPE), "--verbose",
+                                              "False"])
+
+        run_mod.compute_performance = recorded
+        try:
+            pairwise_sqdist.launches = 0
+            t0 = time.time()
+            quietly(config_main, args(general))
+            times = [time.time() - t0]
+            launches = [pairwise_sqdist.launches]
+            run_mod._new_agent_and_state = crashing
+            t0 = time.time()
+            try:
+                quietly(config_main, args(general_ckpt))
+            except KeyboardInterrupt:
+                pass
+            else:
+                raise CheckFailed("resume: the interrupted run did not crash")
+            times.append(time.time() - t0)
+            run_mod._new_agent_and_state = new_agent
+            saved_meta = checkpoint.read_meta("ckpt")
+            checkpoint.load_checkpoint = verified_load
+            t0 = time.time()
+            _, out = quietly(config_main, args(general_ckpt))
+            times.append(time.time() - t0)
+            launches.append(pairwise_sqdist.launches)
+        finally:
+            run_mod.compute_performance = compute_performance
+            run_mod._new_agent_and_state = new_agent
+            checkpoint.load_checkpoint = load_checkpoint
+    want, got = matrices
+    gap = float(np.max(np.abs(got - want)))
+    print("[resume] uninterrupted {:.1f} s, interrupted in task 2 {:.1f} s, resumed {:.1f} s ({}); "
+          "checkpoint after task {}; restored {} tensors, generator {}, host state {}: {}".format(
+              *times, card, saved_meta["task"], verified["tensors"],
+              "equal" if verified["generator"] else "DIFFERENT",
+              "equal" if verified["host"] else "DIFFERENT",
+              "bit for bit" if not verified["mismatches"] else
+              "MISMATCH at {}".format(verified["mismatches"][:5])))
+    print("[resume] accuracy matrix uninterrupted {} resumed {}; largest gap {:.4f} (limit {}); "
+          "pairwise_sqdist launches uninterrupted {}, after the restore {}".format(
+              np.round(want[0], 4).tolist(), np.round(got[0], 4).tolist(), gap, RESUME_GAP,
+              launches[0], launches[1]))
+    require("resuming from checkpoint: run 0 after task 1" in out,
+            "resume: the third run did not resume after task 1")
+    require(not verified["mismatches"] and verified["generator"] and verified["host"],
+            "resume: the restored state differs from the saved one")
+    require(want.shape == got.shape == (1, 3, 3), "resume: accuracy matrices of shape {} {}".format(
+        want.shape, got.shape))
+    require(gap <= RESUME_GAP, "resume: the resumed accuracies part by {} > {}".format(
+        gap, RESUME_GAP))
+    require(launches[1] > 0, "resume: no pairwise_sqdist launch after the restore")
+    return {"seconds": times, "gap": gap, "tensors": verified["tensors"],
+            "launches": launches[0], "launches_after_restore": launches[1],
+            "acc": want[0].tolist(), "resumed_acc": got[0].tolist()}
+
+
+def count_tensors(torch, tree):
+    if isinstance(tree, torch.Tensor):
+        return 1
+    if isinstance(tree, dict):
+        return sum(count_tensors(torch, v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_tensors(torch, v) for v in tree)
+    return 0
+
+
+def run_tune_phase(torch, pairwise_sqdist, card):
+    """Phase 19: the tuner over learning_rate {0.05, 0.1}: main_tune, once
+    more with --train_val True, then multiple_run_tune's CSV."""
+    import csv
+
+    import numpy as np
+
+    from ocl_tpu_torch.config import load_yaml, merge_yaml_params
+    from ocl_tpu_torch.experiment.tune import multiple_run_tune
+    from ocl_tpu_torch.main_tune import build_parser, main as tune_main
+
+    grid = [0.05, 0.1]
+    pairwise_sqdist.launches = 0
+    with experiment_dir():
+        general = cut_recipe(GENERAL, "general.yml", {
+            "num_runs: 5": "num_runs: 1", "num_val: 2": "num_val: 1",
+            "num_runs_val: 3": "num_runs_val: 1"})
+        data = cut_recipe(SYNTHETIC.format("nc"), "data.yml", {"num_tasks: 5": "num_tasks: 3"},
+                          [("synthetic_size", 100)])
+        with open("tune.yml", "w") as f:
+            f.write("parameters:\n  learning_rate:\n" + "".join("  - {}\n".format(v) for v in grid))
+        print("[tune] {} + {} + {} over learning_rate {}, cut: num_runs 5 -> 1, num_val 2 -> 1, "
+              "num_runs_val 3 -> 1, num_tasks 5 -> 3, synthetic_size 2000 -> 100 a class (30 "
+              "steps a task); nf 20, batch 10".format(GENERAL, SYNTHETIC.format("nc"), ER_RECIPE,
+                                                       grid))
+        results, times = {}, []
+        for train_val in ("False", "True"):
+            t0 = time.time()
+            results[train_val], _ = quietly(tune_main, build_parser().parse_args([
+                "--general", general, "--data", data, "--default", os.path.join(REPO, ER_RECIPE),
+                "--tune", "tune.yml", "--train_val", train_val, "--save-path",
+                "tv{}.pkl".format(train_val)]))
+            times.append(time.time() - t0)
+        pickles = {}
+        for train_val in ("False", "True"):
+            with open("result/synthetic/nc/tv{}.pkl".format(train_val), "rb") as f:
+                pickles[train_val] = pickle.load(f)
+        params = merge_yaml_params(load_yaml(general), load_yaml(data),
+                                   load_yaml(os.path.join(REPO, ER_RECIPE)), verbose=False)
+        t0 = time.time()
+        quietly(multiple_run_tune, params, {"learning_rate": grid}, "tune.csv")
+        times.append(time.time() - t0)
+        with open("tables/synthetic/tune.csv") as f:
+            rows = list(csv.DictReader(f))
+    for train_val, shape in (("False", (1, 2, 2)), ("True", (1, 3, 3))):
+        saved = pickles[train_val]
+        best = saved["best_params"]
+        print("[tune] --train_val {}: {:.1f} s ({}), best {}, acc_array {} {}, RAM {:.0f} MB".format(
+            train_val, times[train_val == "True"], card, best, saved["acc_array"].shape,
+            [round(float(a), 4) for a in saved["acc_array"][0][-1]], saved["ram"]))
+        require(set(saved) == {"seed", "time", "acc_array", "ram", "best_params"},
+                "tune: the pickle's keys are {}".format(sorted(saved)))
+        require(saved["acc_array"].shape == shape and np.isfinite(saved["acc_array"]).all(),
+                "tune: acc_array {} is not a finite {}".format(saved["acc_array"].shape, shape))
+        require(len(best) == 1 and best[0]["learning_rate"] in grid,
+                "tune: best point {} is not from the grid".format(best))
+    print("[tune] multiple_run_tune {:.1f} s ({}): CSV columns {}; rows {}".format(
+        times[2], card, list(rows[0]), [(r["Run"], r["learning_rate"], r["Avg_End_Acc"][:8])
+                                   for r in rows]))
+    require([r["Run"] for r in rows] == ["0", "Final Result"] and
+            float(rows[0]["learning_rate"]) in grid and
+            {"Batch1", "Batch2", "Avg_End_Acc", "Avg_End_Fgt", "Time"} <= set(rows[0]),
+            "tune: the CSV's rows are {}".format(rows))
+    print("[tune] pairwise_sqdist launches {}".format(pairwise_sqdist.launches))
+    return {"seconds": times, "best": [pickles[k]["best_params"][0]["learning_rate"]
+                                       for k in ("False", "True")],
+            "launches": pairwise_sqdist.launches}
+
+
+def run_modes_phase(torch, pairwise_sqdist, card):
+    """Phase 20: offline mode through the YAML CLI, then the NI stream
+    (noise, occlusion) with --store and --buffer_tracker."""
+    import numpy as np
+
+    from ocl_tpu_torch.config import load_yaml, merge_yaml_params
+    from ocl_tpu_torch.experiment.run import multiple_run
+    from ocl_tpu_torch.main_config import build_parser, main as config_main
+
+    pairwise_sqdist.launches = 0
+    out = {}
+    with experiment_dir():
+        general = cut_recipe(GENERAL_OFFLINE, "general.yml",
+                             {"num_runs: 10": "num_runs: 1", "epoch: 70": "epoch: 10"})
+        data = cut_recipe(SYNTHETIC.format("nc"), "data.yml", {"num_tasks: 5": "num_tasks: 3"},
+                          [("synthetic_size", 200)])
+        t0 = time.time()
+        acc, _ = quietly(config_main, build_parser().parse_args([
+            "--general", general, "--data", data, "--agent", os.path.join(REPO, OFFLINE_RECIPE),
+            "--verbose", "False"]))
+        out["offline"] = {"acc": float(acc), "seconds": time.time() - t0}
+        print("[modes] offline: {} + {} + {} (mem_size 0), cut: num_runs 10 -> 1, epoch 70 -> "
+              "10, num_tasks 5 -> 3, synthetic_size 2000 -> 200 a class (1,800 images, 14 steps "
+              "of 128 an epoch): avg_end_acc {:.4f}, {:.1f} s ({})".format(
+                  GENERAL_OFFLINE, SYNTHETIC.format("nc"), OFFLINE_RECIPE, float(acc),
+                  out["offline"]["seconds"], card))
+        require(math.isfinite(acc) and acc > 0.5,
+                "modes: offline avg_end_acc {} is not above 0.5".format(acc))
+
+        general_ni = cut_recipe(GENERAL, "general_ni.yml", {"num_runs: 5": "num_runs: 1"})
+        for ns_type in ("noise", "occlusion"):
+            data = load_yaml(os.path.join(REPO, SYNTHETIC.format(ns_type)))
+            factors = data["ns_factor"]
+            data.update(ns_factor=factors[:3], synthetic_size=300)
+            params = merge_yaml_params(load_yaml(general_ni), data,
+                                       load_yaml(os.path.join(REPO, ER_RECIPE)),
+                                       verbose=False, buffer_tracker=True)
+            t0 = time.time()
+            _, log = quietly(multiple_run, params, store=True, save_path="ni_{}.pkl".format(ns_type))
+            seconds = time.time() - t0
+            with open("result/synthetic/ni_{}.pkl".format(ns_type), "rb") as f:
+                saved = pickle.load(f)
+            tracker = [line for line in log.splitlines() if line.startswith("[buffer_tracker]")]
+            acc = saved["acc_array"]
+            print("[modes] NI {}: {} + {} + {}, cut: num_runs 5 -> 1, ns_factor {} -> {} (3 "
+                  "tasks), synthetic_size 2000 -> 300 a class (100 steps a task): accuracy after "
+                  "each task {}; {:.1f} s ({}); tracker: {}".format(
+                      ns_type, GENERAL, SYNTHETIC.format(ns_type), ER_RECIPE, factors,
+                      factors[:3], [[round(float(a), 4) for a in row] for row in acc[0]], seconds,
+                      card, tracker[-1] if tracker else None))
+            require(acc.shape == (1, 3, 3) and np.isfinite(acc).all(),
+                    "modes: NI {} acc_array {}".format(ns_type, acc.shape))
+            require(len(tracker) == 3 and not any("MISMATCH" in line for line in tracker),
+                    "modes: NI {} buffer tracker lines {}".format(ns_type, tracker))
+            require(acc[0][0][0] > 0.5, "modes: NI {} task 0 accuracy {} is not above 0.5".format(
+                ns_type, acc[0][0][0]))
+            out[ns_type] = {"acc": acc[0].tolist(), "seconds": seconds}
+    print("[modes] pairwise_sqdist launches {}".format(pairwise_sqdist.launches))
+    out["launches"] = pairwise_sqdist.launches
+    return out
+
+
 def main():
     import torch
 
@@ -800,9 +1133,15 @@ def main():
     t0 = time.time()
     family["cndpm"] = run_cndpm_phase(torch, device, pairwise_sqdist)
     family["cndpm"]["phase_s"] = time.time() - t0
-    print("[family] seconds a phase: {}".format(
-        ", ".join("{} {:.1f}".format(tag, f["phase_s"]) for tag, f in family.items()
-                  if "phase_s" in f)))
+
+    # 18-20. the experiment layer: resume, tuner, offline and NI
+    for tag, run_phase in (("resume", run_resume_phase), ("tune", run_tune_phase),
+                           ("modes", run_modes_phase)):
+        t0 = time.time()
+        family[tag] = run_phase(torch, pairwise_sqdist, card)
+        family[tag]["phase_s"] = time.time() - t0
+    print("[family] seconds a phase ({}): {}".format(card, ", ".join(
+        "{} {:.1f}".format(tag, f["phase_s"]) for tag, f in family.items() if "phase_s" in f)))
 
     main_shape = shapes[0]  # 30 x 30 x 160, the update's shape on the main path
     print(json.dumps({"kernels": [{
@@ -817,7 +1156,9 @@ def main():
         "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
         "library": "torch.cdist, use_mm_for_euclid_dist (the nearest call: it returns the root)",
         "library_ms": main_shape["library"]["device_ms"],
-        "profiler_ms": profiler_ms, "per_sv_step": per_step, "shapes": shapes}]}))
+        "profiler_ms": profiler_ms, "per_sv_step": per_step, "shapes": shapes,
+        "resume_launches": {"uninterrupted": family["resume"]["launches"],
+                            "after_restore": family["resume"]["launches_after_restore"]}}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -9,6 +9,11 @@ becomes the sigmoid of the previous task's model on the combined rows
 (reference :57-62). Slots the buffer update wrote during this task are not
 retrieved (reference :65). Evaluation is nearest-class-mean (agents/base.py).
 
+Two parity-ablation switches, set as params attributes only, as in ocl_tpu
+(tools/parity_vs_reference.py ICARL_* rows): `abl_icarl_noexcl` retrieves
+without the updated-slot exclusion, and `abl_icarl_teacher_evalbn` runs the
+teacher with its running BN statistics (eval mode) instead of the batch's.
+
 ocl_tpu decides "is there a teacher" on the device with `lax.cond`; here it
 is a host fact, the task count. On the first task the step runs on the
 incoming batch alone: ocl_tpu's memory rows are all masked out there, and a
@@ -23,7 +28,7 @@ import torch.nn.functional as F
 from ocl_tpu_torch.agents.base import ContinualLearner
 from ocl_tpu_torch.buffer import build_update
 from ocl_tpu_torch.buffer.retrieve import gumbel, random_retrieve
-from ocl_tpu_torch.models import forward_teacher, forward_train, snapshot
+from ocl_tpu_torch.models import forward_eval, forward_teacher, forward_train, snapshot
 from ocl_tpu_torch.ops.losses import bce_ohe
 
 
@@ -32,6 +37,8 @@ class Icarl(ContinualLearner):
         super().__init__(params)
         self.update = build_update(self)
         self.compact: dict = {}   # original label -> compact column (per run)
+        self.abl_noexcl = bool(getattr(params, "abl_icarl_noexcl", False))
+        self.abl_evalbn = bool(getattr(params, "abl_icarl_teacher_evalbn", False))
 
     def init_state(self, seed):
         self.compact = {}
@@ -73,14 +80,20 @@ class Icarl(ContinualLearner):
         targets = F.one_hot(self.label_map[yb], self.n_classes).float()
         x_all, row_mask = xb, None
         if ctx.task_seen > 0:
+            excl = None if self.abl_noexcl else self.updated[:-1]
             mem_x, _, _, mem_mask = random_retrieve(buf, batch, draws["retrieve"]["g"],
-                                                    excl_mask=self.updated[:-1])
+                                                    excl_mask=excl)
             x_all = torch.cat([xb, mem_x])
             row_mask = torch.cat([torch.ones_like(yb, dtype=torch.bool), mem_mask])
             targets = torch.cat([targets, torch.zeros_like(targets)])
-            # the previous task's model in train mode (the reference
-            # deepcopies it there): batch-statistic BN over the valid rows
-            q = torch.sigmoid(forward_teacher(state.agent["teacher"], x_all, w=row_mask))
+            teacher = state.agent["teacher"]
+            if self.abl_evalbn:
+                # the ablation: running-statistic BN over every row
+                q = torch.sigmoid(forward_eval(teacher, x_all))
+            else:
+                # the previous task's model in train mode (the reference
+                # deepcopies it there): batch-statistic BN over the valid rows
+                q = torch.sigmoid(forward_teacher(teacher, x_all, w=row_mask))
             targets = torch.where(self.old_cols[None, :], q, targets)
         opt.zero_grad()
         logits = forward_train(model, x_all, row_mask)

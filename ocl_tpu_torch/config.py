@@ -13,6 +13,8 @@ from types import SimpleNamespace
 
 import torch
 
+from ocl_tpu_torch.utils.io import load_yaml  # noqa: F401  (ocl_tpu.config's name)
+
 DEFAULT_TRICK = {
     "labels_trick": False,
     "kd_trick": False,
@@ -131,7 +133,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--temp", type=float, default=0.07)
     parser.add_argument("--buffer_tracker", type=boolean_string, default=False,
                         help="print + consistency-check the buffer's per-class "
-                             "counts after every task (not ported yet)")
+                             "counts after every task")
     parser.add_argument("--warmup", type=int, default=4)
     parser.add_argument("--head", type=str, default="mlp")
     # extensions of ocl_tpu (not in the original reference)
@@ -151,7 +153,8 @@ def build_parser() -> argparse.ArgumentParser:
                         type=boolean_string,
                         help="train all runs as one program (not ported yet)")
     parser.add_argument("--ckpt_dir", dest="ckpt_dir", default=None,
-                        help="checkpoint directory for crash-resume (not ported yet)")
+                        help="checkpoint directory: save after every task, resume "
+                             "after the last saved one")
     parser.add_argument("--fused_replay", dest="fused_replay", default=True,
                         type=boolean_string,
                         help="ER with random/match retrieval: one fused "
@@ -228,3 +231,16 @@ def default_params(**overrides) -> SimpleNamespace:
         setattr(ns, key, val)
     ns.trick = None
     return finalize(ns)
+
+
+def merge_yaml_params(*yaml_dicts, **extra) -> SimpleNamespace:
+    """Dict-union merge of layered YAML sections, later ones winning, then
+    `extra` (counterpart of ocl_tpu/config.py:297-304; reference
+    main_tune.py:13-23). Flags no section names take their defaults,
+    `--device` among them: cuda."""
+    merged = {}
+    for d in yaml_dicts:
+        if d:
+            merged.update(d)
+    merged.update(extra)
+    return finalize(SimpleNamespace(**merged))

@@ -1,8 +1,9 @@
 """Dataset objects (counterpart of ocl_tpu/data/datasets.py).
 
-Only the synthetic stream is ported so far, with the NC protocol: no dataset
-is on disk. `new_task` returns (x float32 NHWC in [0,1], y int array,
-labels), exactly as the JAX package does, from the same numpy draws.
+Only the synthetic stream is ported so far, under the NC and NI protocols:
+no dataset is on disk. `new_task` returns (x float32 NHWC in [0,1], y int
+array, labels), exactly as the JAX package does, from the same numpy (and,
+for occlusion, Python `random`) draws.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from abc import ABC, abstractmethod
 
 import numpy as np
 
+from ocl_tpu_torch.data.non_stationary import construct_ns_multiple_wrapper
 from ocl_tpu_torch.data.task_compose import create_task_composition, load_task_with_labels
 
 
@@ -61,30 +63,46 @@ class DatasetBase(ABC):
 
 
 class _SplitClassDataset(DatasetBase):
-    """Shared NC logic for cifar10/cifar100/mini_imagenet-style datasets.
-    The NI scenario (ocl_tpu/data/non_stationary.py) is not ported yet."""
+    """Shared NC/NI logic for cifar10/cifar100/mini_imagenet-style datasets.
+    NI: one task per `ns_factor`, each an equal random split of the whole
+    train and test sets distorted by its factor (data/non_stationary.py)."""
 
     n_classes = 0
     img_size = 32
 
     def __init__(self, name, scenario, params):
-        if scenario != "nc":
-            raise NotImplementedError(
-                "cl_type {!r} is not ported yet; the port streams 'nc'".format(scenario))
-        super().__init__(name, scenario, params.num_tasks, params)
+        if scenario == "ni":
+            num_tasks = len(params.ns_factor)
+        else:
+            num_tasks = params.num_tasks
+        super().__init__(name, scenario, num_tasks, params)
 
     def setup(self):
-        self.task_labels = create_task_composition(
-            class_nums=self.n_classes, num_tasks=self.task_nums,
-            fixed_order=self.params.fix_order, verbose=self.params.verbose)
-        self.test_set = []
-        for labels in self.task_labels:
-            x_test, y_test = load_task_with_labels(self.test_data, self.test_label, labels)
-            self.test_set.append((x_test, y_test))
+        if self.scenario == "ni":
+            if getattr(self.params, "plot_sample", False):
+                raise NotImplementedError("--plot_sample is not ported yet")
+            self.train_set, self.val_set, self.test_set = construct_ns_multiple_wrapper(
+                self.train_data, self.train_label, self.test_data, self.test_label,
+                self.task_nums, self.img_size, self.params.val_size,
+                self.params.ns_type, self.params.ns_factor)
+        elif self.scenario == "nc":
+            self.task_labels = create_task_composition(
+                class_nums=self.n_classes, num_tasks=self.task_nums,
+                fixed_order=self.params.fix_order, verbose=self.params.verbose)
+            self.test_set = []
+            for labels in self.task_labels:
+                x_test, y_test = load_task_with_labels(self.test_data, self.test_label, labels)
+                self.test_set.append((x_test, y_test))
+        else:
+            raise ValueError("wrong scenario {!r}".format(self.scenario))
 
     def new_task(self, cur_task, **kwargs):
-        labels = self.task_labels[cur_task]
-        x_train, y_train = load_task_with_labels(self.train_data, self.train_label, labels)
+        if self.scenario == "ni":
+            x_train, y_train = self.train_set[cur_task]
+            labels = set(np.asarray(y_train).tolist())
+        else:
+            labels = self.task_labels[cur_task]
+            x_train, y_train = load_task_with_labels(self.train_data, self.train_label, labels)
         return _to_float(x_train), np.asarray(y_train), labels
 
     def new_run(self, **kwargs):

@@ -35,3 +35,21 @@ def load_task_with_labels(x, y, labels):
 def shuffle_data(x, y):
     perm = np.random.permutation(x.shape[0])
     return x[perm], y[perm]
+
+
+def train_val_test_split_ni(train_data, train_label, test_data, test_label,
+                            task_nums, img_size, val_size=0.1):
+    """Shuffled, equal task splits for the NI scenario, the first
+    `val_size` of the shuffled train set held out for validation
+    (reference data_utils.py:75-87)."""
+    train_x, train_y = shuffle_data(train_data, train_label)
+    n_val = int(len(train_x) * val_size)
+    val_x, val_y = train_x[:n_val], train_y[:n_val]
+    train_x, train_y = train_x[n_val:], train_y[n_val:]
+    test_x, test_y = shuffle_data(test_data, test_label)
+
+    def split(x, y):
+        return (x.reshape(task_nums, -1, img_size, img_size, 3),
+                y.reshape(task_nums, -1))
+
+    return (*split(train_x, train_y), *split(val_x, val_y), *split(test_x, test_y))

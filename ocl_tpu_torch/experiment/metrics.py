@@ -59,3 +59,9 @@ def compute_performance(end_task_acc_arr):
     n_run = acc.shape[0]
     return tuple(_ci95(metric(acc), n_run) for metric in (
         avg_end_accuracy, avg_end_forgetting, avg_accuracy, bwt_plus, fwt))
+
+
+def single_run_avg_end_fgt(acc_array):
+    """Avg_End_Fgt of one run's accuracy matrix [t, j] (the tuner's CSV)."""
+    acc = np.asarray(acc_array)
+    return np.mean(np.max(acc, axis=1) - acc[-1])

@@ -19,7 +19,8 @@ def main(args):
     print(args)
     np.random.seed(args.seed)
     random.seed(args.seed)
-    return multiple_run(finalize(args))
+    args = finalize(args)
+    return multiple_run(args, store=args.store, save_path=args.save_path)
 
 
 if __name__ == "__main__":

@@ -341,9 +341,28 @@ def test_icarl_steps_match_ocl_tpu(task_seen):
     keys and batches tried at task 1; 5.7e-6 for one of them at lr 0.001,
     where a wrong retrieval would not shrink); this key and these batches
     keep clear of it."""
+    icarl_two_steps(task_seen)
+
+
+@pytest.mark.parametrize("switch", ["abl_icarl_noexcl", "abl_icarl_teacher_evalbn"])
+def test_icarl_ablation_switches_match_ocl_tpu(switch):
+    """The two steps at task 1 with one of ocl_tpu's parity-ablation
+    switches set (ocl_tpu/agents/icarl.py:51-52): the second step's
+    retrieval may pick a slot the first update wrote, or the teacher
+    normalises with its running BN statistics."""
+    icarl_two_steps(1, switch)
+
+
+def icarl_two_steps(task_seen, switch=None):
+    """Two iCaRL steps on both packages from the same state and draws, with
+    `switch` (a params attribute) set on both; the states must agree."""
     hp = dict(HP, agent="ICARL")
-    j_agent = j_agents["ICARL"](j_default_params(**hp))
-    agent = agents["ICARL"](default_params(**hp, device="cpu"))
+    j_params, t_params = j_default_params(**hp), default_params(**hp, device="cpu")
+    if switch:
+        setattr(j_params, switch, True)
+        setattr(t_params, switch, True)
+    j_agent = j_agents["ICARL"](j_params)
+    agent = agents["ICARL"](t_params)
     params, stats = random_weights(21)
     old = OLD_LABELS[: 4 * task_seen]
     new = [1, 3] if task_seen == 0 else [1, 3, 5, 7]
@@ -371,12 +390,16 @@ def test_icarl_steps_match_ocl_tpu(task_seen):
         rng, r_ret, r_upd = jax.random.split(rng, 3)
         draws = {"retrieve": {"g": _t(jax.random.gumbel(r_ret, (MEM,)))},
                  "update": reservoir_draws(r_upd)}
-        if i == 1:   # the retrieval must skip the slots the first update wrote
+        if i == 1:
             updated = agent.updated[:-1].clone()
             assert 0 < updated.sum() < MEM
             _, _, idx, mask = random_retrieve(tbuf, len(y), draws["retrieve"]["g"],
                                               excl_mask=updated)
             assert mask.all() and not updated[idx].any()
+            if switch == "abl_icarl_noexcl":
+                # these draws pick an updated slot once the exclusion is off
+                _, _, idx, _ = random_retrieve(tbuf, len(y), draws["retrieve"]["g"])
+                assert updated[idx].any()
         agent.step(tstate, ctx, torch.from_numpy(x), torch.from_numpy(y), draws=draws)
     assert_states_close(state, tstate)
 
