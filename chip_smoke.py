@@ -43,7 +43,7 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                torch.profiler, and the phase's pairwise_sqdist launches.
   13-15.     — iCaRL (config/agent/icarl/icarl_1k.yml), GDumb
                (config/agent/gdumb/gdumb_1k.yml with config/general_1_gdumb.yml:
-               batch 16, mem_epoch 30, clip 10) and SCR
+               batch 16, clip 10; mem_epoch cut 30 -> 10) and SCR
                (config_CVPR/agent/scr/scr_1k.yml: eps_mem_batch 100, temp 0.1,
                review_trick, fused views) on the same stream at nf 20, two
                tasks each, with the same figures and checks. GDumb also
@@ -96,7 +96,32 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                tracker line a task and no MISMATCH, and the undistorted
                task 0 above 0.5 after task 0 (the later, distorted tasks'
                accuracies are printed, not gated).
-Then one JSON line of kernel figures, and last the result line
+  21. stacked — --parallel_runs (experiment/parallel_run.py and
+               parallel_tune.py) at nf 20: (a) fused ER from er_1k's flags,
+               3 runs of 2 tasks x 100 steps through general_main, stacked
+               and sequential: aggregate images/s of both, every run's
+               Avg_End_Acc above 0.5, the largest per-run gap; launches,
+               device ms (kernels summed and with a kernel running) and
+               busy share of 5 stacked steps under torch.profiler; (b) ER +
+               ASER, 3 runs stacked: pairwise_sqdist must launch 3 times a
+               stacked SV step, for all runs; the batched kernel against
+               its plain batched version at P 1, 3 and 84 (the synthetic
+               shapes and 210 x 210 x 160; the same limits, an exact 0
+               diagonal), its times by CUDA-graph replay beside P times the
+               single call's bound, the launch floor and batched
+               torch.cdist; (c) main_tune --parallel_runs True over
+               er_tune.yml's 7 x 4 grid x num_runs_val 3 = 84 points
+               (general_1 + synthetic_nc + er_1k, cut as phase 19 cuts
+               them but num_runs_val): seconds, peak device memory, a best
+               point from the grid, 5 stacked steps profiled; then phase
+               19's 2-point grid stacked and sequential; (d) stacked tunes
+               of GDumb (gdumb_tune.yml, mem_epoch 30 -> 3), iCaRL
+               (icarl_tune.yml) and EWC++ (ewc_tune.yml, lambda_ {100}),
+               each ending with a best point from its grid; (e) ER + MIR,
+               GSS, match and mem_match, 3 runs stacked, each run's latest
+               task above 0.5.
+Then one JSON line of kernel figures (K1's with its batched figures), the
+script's total seconds, and last the result line
 {"ok": true, "device": {...}}.
 """
 
@@ -164,7 +189,8 @@ SCR = ("scr", "SCR (scr_1k: eps_mem_batch 100, temp 0.1, review_trick, fused vie
        ["--agent", "SCR", "--eps_mem_batch", "100", "--temp", "0.1", "--weight_decay", "0",
         "--review_trick", "True"], 2, FAMILY_PROFILE_STEPS)
 # phase 14: gdumb_1k with general_1_gdumb's batch
-GDUMB_FLAGS = ["--agent", "GDUMB", "--batch", "16", "--mem_epoch", "30", "--clip", "10.0",
+# (mem_epoch cut 30 -> 10, 620 retrain steps a task: the script's time)
+GDUMB_FLAGS = ["--agent", "GDUMB", "--batch", "16", "--mem_epoch", "10", "--clip", "10.0",
                "--minlr", "0.0005"]
 GDUMB_PROFILE_STEPS = 10
 # phase 17: CN-DPM, config/agent/cndpm/cndpm.yml with config/general_1.yml
@@ -185,6 +211,33 @@ ASER_RECIPE = "config_CVPR/agent/aser/aser_1k_cifar100.yml"
 ER_RECIPE = "config/agent/er/er_1k.yml"
 OFFLINE_RECIPE = "config/agent/er/offline.yml"
 RESUME_GAP = 0.02
+# phase 21: stacked runs and the stacked tuner. (a) fused ER from er_1k's
+# flags, 3 runs of 2 tasks x 100 steps, stacked and sequential; (b) ER +
+# ASER stacked, R = 3; the batched kernel at P points
+STACKED_RUNS = 3
+STACKED_FLAGS = ["--device", "cuda", "--data", "synthetic", "--agent", "ER",
+                 "--update", "random", "--retrieve", "random", "--mem_size", "1000",
+                 "--eps_mem_batch", "10", "--batch", "10", "--learning_rate", "0.1",
+                 "--nf", "20", "--num_tasks", "2", "--synthetic_size", "200",
+                 "--num_runs", str(STACKED_RUNS), "--matmul_precision", "highest",
+                 "--verbose", "False"]
+STACKED_ASER_FLAGS = STACKED_FLAGS + ["--update", "ASER", "--retrieve", "ASER", "--aser_type",
+                                      "asvm", "--k", "3", "--n_smp_cls", "2.0"]
+STACKED_PROFILE_STEPS = 5
+# (e) the other strategies, 3 runs stacked: 2 tasks x 50 steps into a buffer
+# of 200, full after 20 steps (GSS then takes its gated replacements). At 25
+# steps a task ER + match trained unstably on the card, stacked or not (a
+# sequential run's latest task read 0.684, a stacked one 0.028 to 1.0 from
+# call to call); at 50 every run reads 1.0 either way (PERF.md §6, PR 7)
+STACKED_STRATEGIES = [
+    ("mir", ["--retrieve", "MIR", "--subsample", "50", "--fused_replay", "False"]),
+    ("gss", ["--update", "GSS", "--gss_mem_strength", "10", "--gss_batch_size", "10"]),
+    ("match", ["--retrieve", "match", "--warmup", "0"]),
+    ("mem_match", ["--retrieve", "mem_match", "--warmup", "0", "--fused_replay", "False"]),
+]
+BATCHED_POINTS = (1, 3, 84)
+BATCHED_SHAPES = [(30, 30, 160), (10, 20, 160), (20, 20, 160), (210, 210, 160)]
+ER_TUNE = "config/agent/er/er_tune.yml"
 
 
 class CheckFailed(RuntimeError):
@@ -509,8 +562,9 @@ def run_gdumb_phase(torch, device, pairwise_sqdist):
     per_step = {"kernels": len(kernels) / GDUMB_PROFILE_STEPS,
                 "device_ms": sum(us for _, us in kernels) / 1e3 / GDUMB_PROFILE_STEPS,
                 "wall_ms": wall * 1e3 / GDUMB_PROFILE_STEPS}
-    print("[gdumb] GDumb (gdumb_1k, batch 16, mem_epoch 30, clip 10) nf {}, {} tasks: accuracy "
-          "after each task on tasks 0-{} {}, Avg_End_Acc over them {:.4f}, latest task {:.4f}, "
+    print("[gdumb] GDumb (gdumb_1k, batch 16, mem_epoch 30 -> 10, clip 10) nf {}, {} tasks: "
+          "accuracy after each task on tasks 0-{} {}, Avg_End_Acc over them {:.4f}, latest task "
+          "{:.4f}, "
           "{:.1f} images/s; retrain {} steps in {:.1f} s, {:.1f} steps/s ({} in the last task); "
           "{} profiled retrain steps: {:.0f} launches, {:.3f} ms device, {:.1f} ms host clock a "
           "step; pairwise_sqdist launches {}".format(
@@ -1006,7 +1060,374 @@ def run_modes_phase(torch, pairwise_sqdist, card):
     return out
 
 
+def check_batched_kernel(torch, distance, floor_ms):
+    """Phase 21 (b), the kernel: the batched launch against the plain batched
+    version at P in BATCHED_POINTS, an exact 0 diagonal of (a, a), vmap's
+    route to one launch; then its times with the bound of P single calls and
+    torch.cdist's batched call. Returns (rows, max_abs)."""
+    from ocl_tpu_torch.tools import kernel_timing as kt
+
+    batched, plain = distance.pairwise_sqdist_batched, distance.pairwise_sqdist_plain_batched
+    g = torch.Generator(device="cuda").manual_seed(21)
+    rows, max_abs = [], 0.0
+    for p in BATCHED_POINTS:
+        for n, m, d in BATCHED_SHAPES:
+            a = torch.randn(p, n, d, device="cuda", generator=g)
+            b = torch.randn(p, m, d, device="cuda", generator=g)
+            got = batched(a, b)
+            torch.cuda.synchronize()
+            abs_err, rel_err = errors(torch, got, plain(a, b))
+            require(math.isfinite(abs_err) and rel_err <= MAX_REL and abs_err <= MAX_ABS,
+                    "batched kernel disagrees with plain at P {} {}x{}x{}: abs {} rel {}".format(
+                        p, n, m, d, abs_err, rel_err))
+            max_abs = max(max_abs, abs_err)
+            kernel = kt.figures(lambda: batched(a, b))
+            plain_f = kt.figures(lambda: plain(a, b))
+            library = kt.figures(lambda: torch.cdist(a, b, compute_mode="use_mm_for_euclid_dist"))
+            one_ms, bound_by = kt.sqdist_bound(n, m, d)
+            rows.append({"points": p, "shape": [n, m, d], "max_abs_err": abs_err,
+                         "max_rel_err": rel_err, **kernel, "plain_ms": plain_f["device_ms"],
+                         "library_ms": library["device_ms"], "bound_ms": p * one_ms,
+                         "bound_by": bound_by, "floor_ms": floor_ms})
+            print("[stacked] batched kernel P {} {}x{}x{}: max_abs_err {:.3e} max_rel_err {:.3e}; "
+                  "device {:.5f} ms (plain {:.5f}, batched cdist {:.5f}, bound {:.2e} ms by {}, "
+                  "floor {:.5f}); host {:.2f} us".format(
+                      p, n, m, d, abs_err, rel_err, kernel["device_ms"], plain_f["device_ms"],
+                      library["device_ms"], p * one_ms, bound_by, floor_ms, kernel["host_us"]))
+        for n in (30, 210):
+            a = torch.randn(p, n, 160, device="cuda", generator=g)
+            diag = batched(a, a).diagonal(dim1=1, dim2=2)
+            require(bool((diag == 0).all()), "batched pairwise_sqdist(a, a) at P {} {}x160 has a "
+                    "diagonal entry {} != 0".format(p, n, diag.abs().max().item()))
+        print("[stacked] batched pairwise_sqdist(a, a) at P {}, 30 and 210 x 160: diagonal "
+              "exactly 0".format(p))
+    a = torch.randn(3, 30, 160, device="cuda", generator=g)
+    b = torch.randn(3, 20, 160, device="cuda", generator=g)
+    before = distance.pairwise_sqdist.launches
+    got = torch.func.vmap(distance.pairwise_sqdist)(a, b)
+    require(distance.pairwise_sqdist.launches == before + 1 and torch.equal(got, batched(a, b)),
+            "vmap(pairwise_sqdist) did not make one batched launch")
+    print("[stacked] vmap(pairwise_sqdist) over 3 points: one launch, equal to the batched call")
+    return rows, max_abs
+
+
+def profile_stacked_steps(torch, agent, ss, ctx, xs, ys, steps, pairwise_sqdist):
+    """Per-step figures of `steps` stacked steps under torch.profiler:
+    launches, device ms, host-clock ms a step, and pairwise_sqdist's
+    launches by its counter and by the trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ocl_tpu_torch.tools.kernel_timing import busy_ms, kernel_times
+
+    torch.cuda.synchronize()
+    before = pairwise_sqdist.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            agent.stacked_step(ss, ctx, xs[:, i], ys[:, i])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = kernel_times(prof)
+    counts = {}
+    for name, us in kernels:
+        n, t = counts.get(name[:60], (0, 0.0))
+        counts[name[:60]] = (n + 1, t + us)
+    top = sorted(counts.items(), key=lambda kv: -kv[1][1])[:4]
+    return {"kernels": len(kernels) / steps,
+            "device_ms": sum(us for _, us in kernels) / 1e3 / steps,
+            "busy_ms": busy_ms(prof) / steps, "wall_ms": wall * 1e3 / steps,
+            "busy": busy_ms(prof) / (wall * 1e3),
+            "k1_launches": (pairwise_sqdist.launches - before) / steps,
+            "k1_traced": sum(KERNEL in name for name, _ in kernels) / steps,
+            "top": [(k, n / steps, t / 1e3 / steps) for k, (n, t) in top]}
+
+
+def stacked_state_after_task0(torch, flags, grid=None):
+    """The stacked state of `flags`' runs after task 0 of the synthetic
+    stream, and task 1's batches [P, steps, B, ...] with its context. With
+    `grid` (lrs, wds) of G points, the tuner's G x 3 points instead: val run
+    r from seed + 1000 + r, each grid point with its own lr and wd."""
+    import numpy as np
+    from types import SimpleNamespace
+
+    from ocl_tpu_torch.agents.base import stack_ctx
+    from ocl_tpu_torch.config import build_parser, finalize
+    from ocl_tpu_torch.data import continuum
+    from ocl_tpu_torch.experiment.parallel_run import _stack
+    from ocl_tpu_torch.registry import agents
+
+    params = finalize(build_parser().parse_args(flags))
+    np.random.seed(params.seed)
+    stream = continuum(params.data, params.cl_type, params)
+    stream.new_run()
+    agent = agents[params.agent](params)
+    if grid is None:
+        ss = _stack([agent.init_state(params.seed + r) for r in range(params.num_runs)])
+    else:
+        states = [agent.init_state(params.seed + 1000 + r) for r in range(3)]
+        ss = _stack([states[r] for _ in grid[0] for r in range(3)],
+                    lr=[lr for lr in grid[0] for _ in range(3)],
+                    wd=[wd for wd in grid[1] for _ in range(3)])
+    p = ss.points
+    tasks = []
+    for _ in range(2):
+        x, y, _ = next(stream)
+        ctx = stack_ctx(agent.before_train(y), p)
+        xs, ys = agent.batchify(SimpleNamespace(generator=ss.generators[0]), x, y)
+        tasks.append((ctx, xs.expand(p, *xs.shape), ys.expand(p, *ys.shape)))
+        if len(tasks) == 1:
+            agent.stacked_train_task(ss, *tasks[0])
+            agent.after_train_stacked(ss, tasks[0][0])
+    torch.cuda.synchronize()
+    return agent, ss, tasks[1]
+
+
+def sequential_images_per_s(text, images_a_run):
+    """The aggregate images/s of multiple_run's runs from their lines."""
+    rates = [float(line.split("throughput")[1].split()[0]) for line in text.splitlines()
+             if "stream throughput" in line and "-----------run" in line]
+    return len(rates) * images_a_run / sum(images_a_run / r for r in rates)
+
+
+def run_stacked_phase(torch, distance, card, floor_ms):
+    """Phase 21: stacked runs and the stacked tuner (experiment/parallel_run.py,
+    experiment/parallel_tune.py): (a) fused ER, 3 runs stacked and sequential;
+    (b) ER + ASER stacked and the batched kernel; (c) the 84-point ER grid,
+    then phase 19's 2-point grid stacked and sequential; (d) GDumb, iCaRL and
+    EWC++ grids stacked."""
+    import numpy as np
+
+    from ocl_tpu_torch.config import build_parser, load_yaml, merge_yaml_params
+    from ocl_tpu_torch.experiment import parallel_tune
+    from ocl_tpu_torch.general_main import main as cli_main
+    from ocl_tpu_torch.main_tune import build_parser as tune_parser, main as tune_main
+
+    pairwise_sqdist = distance.pairwise_sqdist
+    out = {}
+    # (a) stacked against sequential runs through the CLI
+    images_a_run = 2 * 100 * 10
+    runs = {}
+    with experiment_dir():
+        for mode in ("stacked", "sequential"):
+            flags = STACKED_FLAGS + ["--store", "True", "--save-path", mode + ".pkl"]
+            if mode == "stacked":
+                flags += ["--parallel_runs", "True"]
+            t0 = time.time()
+            _, text = quietly(cli_main, build_parser().parse_args(flags))
+            secs = time.time() - t0
+            with open("result/synthetic/{}.pkl".format(mode), "rb") as f:
+                acc = pickle.load(f)["acc_array"]
+            if mode == "stacked":
+                line = [ln for ln in text.splitlines() if "aggregate stream throughput" in ln][0]
+                ips = float(line.split("throughput")[1].split()[0])
+            else:
+                ips = sequential_images_per_s(text, images_a_run)
+            runs[mode] = {"seconds": secs, "images_per_s": ips,
+                          "end_acc": acc[:, -1].mean(axis=1).tolist()}
+    gap = max(abs(a - b) for a, b in zip(runs["stacked"]["end_acc"], runs["sequential"]["end_acc"]))
+    print("[stacked] (a) fused ER, {} runs x 2 tasks x 100 steps, nf 20 ({}): stacked {:.1f} "
+          "images/s aggregate ({:.1f} s), sequential {:.1f} images/s ({:.1f} s), stacked / "
+          "sequential {:.2f}x; Avg_End_Acc a run stacked {} sequential {}, largest gap "
+          "{:.4f}".format(
+              STACKED_RUNS, card, runs["stacked"]["images_per_s"], runs["stacked"]["seconds"],
+              runs["sequential"]["images_per_s"], runs["sequential"]["seconds"],
+              runs["stacked"]["images_per_s"] / runs["sequential"]["images_per_s"],
+              [round(a, 4) for a in runs["stacked"]["end_acc"]],
+              [round(a, 4) for a in runs["sequential"]["end_acc"]], gap))
+    for mode in runs:
+        require(all(a > 0.5 for a in runs[mode]["end_acc"]),
+                "stacked (a): a {} run's Avg_End_Acc is not above 0.5: {}".format(
+                    mode, runs[mode]["end_acc"]))
+    agent, ss, (ctx, xs, ys) = stacked_state_after_task0(torch, STACKED_FLAGS)
+    for i in range(2):
+        agent.stacked_step(ss, ctx, xs[:, i], ys[:, i])
+    prof = profile_stacked_steps(torch, agent, ss, ctx, xs[:, 2:], ys[:, 2:],
+                                 STACKED_PROFILE_STEPS, pairwise_sqdist)
+    step_ms = STACKED_RUNS * 10 / runs["stacked"]["images_per_s"] * 1e3
+    print("[stacked] (a) {} profiled stacked steps of {} runs: {:.0f} launches, {:.3f} ms device "
+          "(kernels summed; {:.3f} ms with a kernel running), {:.1f} ms host clock a step under "
+          "the profiler (busy {:.1%}); unprofiled step {:.1f} ms (busy {:.1%}); top kernels "
+          "{}".format(
+              STACKED_PROFILE_STEPS, STACKED_RUNS, prof["kernels"], prof["device_ms"],
+              prof["busy_ms"], prof["wall_ms"], prof["busy"], step_ms,
+              prof["busy_ms"] / step_ms, prof["top"]))
+    out["runs"] = dict(runs, profile=prof, step_ms=step_ms, gap=gap)
+    del agent, ss
+
+    # (b) stacked ER + ASER through the CLI, then 3 launches a stacked SV step
+    pairwise_sqdist.launches = 0
+    t0 = time.time()
+    res, _ = quietly(cli_main, build_parser().parse_args(STACKED_ASER_FLAGS +
+                                                         ["--parallel_runs", "True"]))
+    aser_launches = pairwise_sqdist.launches
+    print("[stacked] (b) ER + ASER, {} runs stacked, 2 tasks x 100 steps: Avg_End_Acc {:.4f}, "
+          "pairwise_sqdist launches {} ({:.1f} s)".format(
+              STACKED_RUNS, float(res[0][0]), aser_launches, time.time() - t0))
+    require(aser_launches > 0 and float(res[0][0]) > 0.5,
+            "stacked ER + ASER: {} launches, Avg_End_Acc {}".format(aser_launches, res[0][0]))
+    agent, ss, (ctx, xs, ys) = stacked_state_after_task0(torch, STACKED_ASER_FLAGS)
+    for i in range(2):   # the first step's retrieval is still random (n_seen = mem)
+        agent.stacked_step(ss, ctx, xs[:, i], ys[:, i])
+    sv = profile_stacked_steps(torch, agent, ss, ctx, xs[:, 2:], ys[:, 2:],
+                               STACKED_PROFILE_STEPS, pairwise_sqdist)
+    print("[stacked] (b) {} profiled stacked SV steps: pairwise_sqdist {:.1f} launches a step "
+          "(counter; {:.1f} in the trace) for {} points; {:.0f} launches, {:.3f} ms device, {:.1f} "
+          "ms host clock a step (busy {:.1%})".format(
+              STACKED_PROFILE_STEPS, sv["k1_launches"], sv["k1_traced"], STACKED_RUNS,
+              sv["kernels"], sv["device_ms"], sv["wall_ms"], sv["busy"]))
+    require(sv["k1_launches"] == 3 and sv["k1_traced"] in (0, 3),
+            "stacked SV steps launched pairwise_sqdist {} times a step, not 3".format(
+                sv["k1_launches"]))
+    del agent, ss
+    rows, max_abs = check_batched_kernel(torch, distance, floor_ms)
+    out["aser"] = {"launches": aser_launches, "per_sv_step": sv, "kernel_rows": rows,
+                   "max_abs_err": max_abs}
+
+    # (c) the full ER grid, 84 points, then phase 19's grid stacked and not
+    tune_times = {}
+    with experiment_dir():
+        general = cut_recipe(GENERAL, "general.yml", {
+            "num_runs: 5": "num_runs: 1", "num_val: 2": "num_val: 1"})
+        general_1 = cut_recipe(GENERAL, "general_1.yml", {
+            "num_runs: 5": "num_runs: 1", "num_val: 2": "num_val: 1",
+            "num_runs_val: 3": "num_runs_val: 1"})
+        data = cut_recipe(SYNTHETIC.format("nc"), "data.yml", {"num_tasks: 5": "num_tasks: 3"},
+                          [("synthetic_size", 100)])
+        grid = load_yaml(os.path.join(REPO, ER_TUNE))
+        points = len(grid["learning_rate"]) * len(grid["weight_decay"]) * 3
+        timed = parallel_tune.tune_hyper_parallel
+
+        def timed_tune(*args, **kwargs):
+            t = time.time()
+            best = timed(*args, **kwargs)
+            torch.cuda.synchronize()
+            tune_times.setdefault("stacked_tune_s", []).append(time.time() - t)
+            return best
+
+        parallel_tune.tune_hyper_parallel = timed_tune
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            result, text = quietly(tune_main, tune_parser().parse_args([
+                "--general", general, "--data", data, "--default", os.path.join(REPO, ER_RECIPE),
+                "--tune", os.path.join(REPO, ER_TUNE), "--parallel_runs", "True",
+                "--save-path", "grid.pkl"]))
+            full_s = time.time() - t0
+            peak = torch.cuda.max_memory_allocated()
+            require("{} stacked tuning states".format(points) in text,
+                    "the ER grid did not run its {} points stacked".format(points))
+            best = result["best_params"][0]
+            require(best["learning_rate"] in grid["learning_rate"] and
+                    best["weight_decay"] in grid["weight_decay"],
+                    "ER grid: best point {} is not from the grid".format(best))
+            with open("tune2.yml", "w") as f:
+                f.write("parameters:\n  learning_rate:\n  - 0.05\n  - 0.1\n")
+            two = {}
+            for stacked in ("True", "False"):
+                t0 = time.time()
+                r2, _ = quietly(tune_main, tune_parser().parse_args([
+                    "--general", general_1, "--data", data, "--default",
+                    os.path.join(REPO, ER_RECIPE), "--tune", "tune2.yml", "--parallel_runs",
+                    stacked, "--save-path", "two{}.pkl".format(stacked)]))
+                two[stacked] = (time.time() - t0, r2["best_params"][0]["learning_rate"])
+        finally:
+            parallel_tune.tune_hyper_parallel = timed
+        params = merge_yaml_params(load_yaml(general), load_yaml(data),
+                                   load_yaml(os.path.join(REPO, ER_RECIPE)), verbose=False)
+    # the 84 points' stacked steps under the profiler, as the tuner stacks them
+    lrs = [lr for lr in grid["learning_rate"] for _ in grid["weight_decay"]]
+    wds = [wd for _ in grid["learning_rate"] for wd in grid["weight_decay"]]
+    flags = STACKED_FLAGS + ["--num_tasks", "3", "--synthetic_size", "100", "--num_runs", "1"]
+    agent, ss, (ctx, xs, ys) = stacked_state_after_task0(torch, flags, (lrs, wds))
+    agent.stacked_step(ss, ctx, xs[:, 0], ys[:, 0])
+    grid_prof = profile_stacked_steps(torch, agent, ss, ctx, xs[:, 1:], ys[:, 1:],
+                                      STACKED_PROFILE_STEPS, pairwise_sqdist)
+    del agent, ss
+    print("[stacked] (c) {} + {} + {} over {} ({} points: 7 x 4 x num_runs_val 3), cut: num_runs "
+          "5 -> 1, num_val 2 -> 1, num_tasks 5 -> 3, synthetic_size 2000 -> 100 a class; nf 20, "
+          "batch {} ({}): main_tune {:.1f} s, of it the stacked tune {:.1f} s; peak device "
+          "memory {:.2f} GiB; best {}; {} profiled stacked steps: {:.0f} launches, {:.3f} ms "
+          "device (kernels summed; {:.3f} ms with a kernel running), {:.1f} ms host clock a step "
+          "(busy {:.1%}); top kernels {}".format(
+              GENERAL, SYNTHETIC.format("nc"), ER_RECIPE, ER_TUNE, points, params.batch, card,
+              full_s, tune_times["stacked_tune_s"][0], peak / 2**30, best, STACKED_PROFILE_STEPS,
+              grid_prof["kernels"], grid_prof["device_ms"], grid_prof["busy_ms"],
+              grid_prof["wall_ms"], grid_prof["busy"], grid_prof["top"]))
+    print("[stacked] (c) phase 19's grid learning_rate {{0.05, 0.1}}, num_runs_val 1: stacked "
+          "{:.1f} s (best {}), sequential {:.1f} s (best {})".format(
+              two["True"][0], two["True"][1], two["False"][0], two["False"][1]))
+    out["grid"] = {"points": points, "seconds": full_s, "tune_s": tune_times["stacked_tune_s"][0],
+                   "peak_gib": peak / 2**30, "best": best, "profile": grid_prof,
+                   "two_point_s": {"stacked": two["True"][0], "sequential": two["False"][0]}}
+
+    # (d) the other stacked tuners, small grids
+    small = {}
+    with experiment_dir():
+        general = cut_recipe(GENERAL, "general.yml", {
+            "num_runs: 5": "num_runs: 1", "num_val: 2": "num_val: 1",
+            "num_runs_val: 3": "num_runs_val: 1"})
+        general_gdumb = cut_recipe("config/general_1_gdumb.yml", "general_gdumb.yml", {
+            "num_runs: 5": "num_runs: 1", "num_val: 2": "num_val: 1",
+            "num_runs_val: 3": "num_runs_val: 1"})
+        data = cut_recipe(SYNTHETIC.format("nc"), "data.yml", {"num_tasks: 5": "num_tasks: 3"},
+                          [("synthetic_size", 100)])
+        gdumb = cut_recipe("config/agent/gdumb/gdumb_1k.yml", "gdumb.yml",
+                           {"mem_epoch: 30": "mem_epoch: 3"})
+        ewc_tune = cut_recipe("config/agent/ewc/ewc_tune.yml", "ewc_tune.yml", {
+            "  lambda_:\n  - 0\n  - 100\n  - 1000\n": "  lambda_:\n  - 100\n"})
+        cases = [
+            ("gdumb", general_gdumb, gdumb, "config/agent/gdumb/gdumb_tune.yml", None,
+             "mem_epoch 30 -> 3"),
+            ("icarl", general, os.path.join(REPO, "config/agent/icarl/icarl_1k.yml"),
+             "config/agent/icarl/icarl_tune.yml", None, ""),
+            ("ewc", general, os.path.join(REPO, "config/agent/ewc/ewc.yml"),
+             "config/agent/ewc/ewc_tune.yml", ewc_tune, "lambda_ {0, 100, 1000} -> {100}"),
+        ]
+        for tag, gen, default, tune_file, tune_path, cut in cases:
+            tune_path = tune_path or os.path.join(REPO, tune_file)
+            grid = load_yaml(tune_path)
+            t0 = time.time()
+            result, text = quietly(tune_main, tune_parser().parse_args([
+                "--general", gen, "--data", data, "--default", default, "--tune", tune_path,
+                "--parallel_runs", "True", "--save-path", tag + ".pkl"]))
+            secs = time.time() - t0
+            best = result["best_params"][0]
+            n = len(grid["learning_rate"]) * len(grid["weight_decay"])
+            require("{} stacked tuning states".format(n) in text,
+                    "{}: the grid did not run its {} points stacked".format(tag, n))
+            require(best["learning_rate"] in grid["learning_rate"] and
+                    best["weight_decay"] in grid["weight_decay"],
+                    "{}: best point {} is not from the grid".format(tag, best))
+            print("[stacked] (d) {} over {} ({} points, num_runs_val 1, num_val 1, 3 tasks of 100 "
+                  "images a class{}): {:.1f} s ({}), best {}".format(
+                      tag, tune_file, n, ", " + cut if cut else "", secs, card, best))
+            small[tag] = {"points": n, "seconds": secs, "best": best}
+    out["small"] = small
+
+    # (e) the other strategies stacked, through the CLI: each run's accuracy
+    # on its latest task (match retrieves the incoming batch's classes only,
+    # so the earlier task is forgotten by design)
+    out["strategies"] = {}
+    with experiment_dir():
+        for tag, flags in STACKED_STRATEGIES:
+            t0 = time.time()
+            res, _ = quietly(cli_main, build_parser().parse_args(
+                STACKED_FLAGS + ["--synthetic_size", "100", "--mem_size", "200", "--parallel_runs",
+                                 "True", "--store", "True", "--save-path", tag + ".pkl"] + flags))
+            with open("result/synthetic/{}.pkl".format(tag), "rb") as f:
+                latest = pickle.load(f)["acc_array"][:, -1, -1]
+            print("[stacked] (e) ER + {}, {} runs stacked, 2 tasks x 50 steps, mem 200: "
+                  "Avg_End_Acc {:.4f}, latest task a run {} ({:.1f} s)".format(
+                      tag, STACKED_RUNS, float(res[0][0]), [round(float(a), 4) for a in latest],
+                      time.time() - t0))
+            require(np.isfinite(latest).all() and (latest > 0.5).all(),
+                    "stacked ER + {}: latest-task accuracies {} not above 0.5".format(tag, latest))
+            out["strategies"][tag] = latest.tolist()
+    return out
+
+
 def main():
+    script_t0 = time.time()
     import torch
 
     # 1. device
@@ -1140,6 +1561,11 @@ def main():
         t0 = time.time()
         family[tag] = run_phase(torch, pairwise_sqdist, card)
         family[tag]["phase_s"] = time.time() - t0
+
+    # 21. stacked runs and the stacked tuner, the batched kernel
+    t0 = time.time()
+    stacked = run_stacked_phase(torch, distance, card, floor["device_ms"])
+    family["stacked"] = {"phase_s": time.time() - t0}
     print("[family] seconds a phase ({}): {}".format(card, ", ".join(
         "{} {:.1f}".format(tag, f["phase_s"]) for tag, f in family.items() if "phase_s" in f)))
 
@@ -1158,7 +1584,12 @@ def main():
         "library_ms": main_shape["library"]["device_ms"],
         "profiler_ms": profiler_ms, "per_sv_step": per_step, "shapes": shapes,
         "resume_launches": {"uninterrupted": family["resume"]["launches"],
-                            "after_restore": family["resume"]["launches_after_restore"]}}]}))
+                            "after_restore": family["resume"]["launches_after_restore"]},
+        "batched": {"points": list(BATCHED_POINTS), "max_abs_err": stacked["aser"]["max_abs_err"],
+                    "stacked_aser_launches": stacked["aser"]["launches"],
+                    "launches_a_stacked_sv_step": stacked["aser"]["per_sv_step"]["k1_launches"],
+                    "runs": STACKED_RUNS, "shapes": stacked["aser"]["kernel_rows"]}}]}))
+    print("[total] chip_smoke.py {:.1f} s ({})".format(time.time() - script_t0, card))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

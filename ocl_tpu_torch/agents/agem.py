@@ -7,20 +7,30 @@ g_ref, then step. The coefficient is a `torch.where` on the device. The
 memory pass runs from the second task on, when the buffer holds a row; a
 retrieval with no valid row folds no BN statistics and gives g_ref = 0, so
 the coefficient is 0, as ocl_tpu's `jnp.any(mem_mask)` gate has it.
+
+`stacked_step` takes every point's losses under vmap and projects each
+point's gradient with its own coefficient, from dot products over that
+point's slice of the stacked leaves.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ocl_tpu_torch.agents.base import ContinualLearner
-from ocl_tpu_torch.agents.er import ExperienceReplay, batch_grads
+from ocl_tpu_torch.agents.base import ContinualLearner, point_map
+from ocl_tpu_torch.agents.er import ExperienceReplay, batch_grads, stacked_grads
 from ocl_tpu_torch.buffer import build_retrieve, build_update
 from ocl_tpu_torch.models import forward_train
+from ocl_tpu_torch.optim import _per_point
 
 
 def _dot(a, b):
     return sum((x * y).sum() for x, y in zip(a, b))
+
+
+def _dot_points(a, b):
+    """[P] dot products of stacked leaves, point by point."""
+    return sum((x * y).flatten(1).sum(1) for x, y in zip(a, b))
 
 
 class AGEM(ContinualLearner):
@@ -30,11 +40,43 @@ class AGEM(ContinualLearner):
         self.update = build_update(self)
 
     draw = ExperienceReplay.draw
+    stacked_retrieve = ExperienceReplay.stacked_retrieve
+    stacked_update = ExperienceReplay.stacked_update
 
     def loss(self, state, ctx, x, y, mask=None):
         logits = forward_train(state.model, x, mask)
         loss = self.criterion(logits, y, ctx, mask)
         return self.maybe_kd_blend(loss, logits, x, ctx, state.agent, mask), logits
+
+    def batch_loss(self, state, ctx, x, y):
+        loss, logits = self.loss(state, ctx, x, y)
+        return loss, (logits.argmax(1) == y).float().mean()
+
+    def memory_loss(self, state, ctx, x, y, mask):
+        return self.loss(state, ctx, x, y, mask)[0]
+
+    def stacked_step(self, ss, ctx, xb, yb, draws=None):
+        if draws is None:
+            draws = ss.draw(lambda g: self.draw(g, xb.shape[1]))
+        opt = ss.optimizer
+        for ret_draws in draws["retrieve"]:
+            opt.zero_grad()
+            loss_b, acc_b = point_map(ss, self.batch_loss, ctx, xb, yb)
+            loss_b.sum().backward()
+            mem = self.stacked_retrieve(ss, ctx, xb, yb, ret_draws, stacked_grads(ss))
+            if ctx.task_seen > 0 and ss.buffer.current_index > 0:
+                g = [p.grad for p in opt.params]
+                opt.zero_grad()
+                point_map(ss, self.memory_loss, ctx, *mem).sum().backward()
+                g_ref = [p.grad for p in opt.params]
+                prod = _dot_points(g, g_ref)
+                coef = torch.where(prod < 0,
+                                   prod / torch.clamp(_dot_points(g_ref, g_ref), min=1e-12), 0.0)
+                for p, gi, ri in zip(opt.params, g, g_ref):
+                    p.grad = gi - _per_point(coef, ri) * ri
+            opt.step()
+        self.stacked_update(ss, ctx, xb, yb, draws["update"])
+        return loss_b.detach(), acc_b
 
     def step(self, state, ctx, xb, yb, draws=None):
         model, opt, buf = state.model, state.optimizer, state.buffer

@@ -5,23 +5,34 @@ ocl_tpu runs each task as one jitted `lax.scan`; here each step runs from
 Python on the device's stream, and the host reads results back once per task
 (losses) and once per evaluation (accuracies; with --error_analysis, each
 test set's predictions and logits).
+
+The stacked hooks (counterpart of ocl_tpu/agents/base.py:145-174) train P
+points at once, the stacked runs and the grid tuner of
+experiment/parallel_run.py and parallel_tune.py: a `StackedState` holds P
+train states as [P, ...] tensors, and `point_map` runs an agent's own
+per-point code on all of them under `torch.func.vmap`, so each launch
+serves every point; gradients, the optimizer step and the per-point
+reductions (AGEM's projection, EWC's Fisher) act on the stacked leaves.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import pickle
 import random
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from ocl_tpu_torch.agents import review
-from ocl_tpu_torch.buffer.state import BufferState, init_buffer, valid_mask
+from ocl_tpu_torch.buffer.state import BufferState, StackedBuffer, init_buffer, valid_mask
 from ocl_tpu_torch.config import n_classes_match
 from ocl_tpu_torch.models import (
+    Stacked,
+    bind,
     feature_dim_for,
     features_eval,
     forward_eval,
@@ -31,7 +42,7 @@ from ocl_tpu_torch.models import (
     snapshot,
 )
 from ocl_tpu_torch.ops import losses
-from ocl_tpu_torch.optim import setup_opt
+from ocl_tpu_torch.optim import StackedOptimizer, setup_opt
 from ocl_tpu_torch.utils.meters import AverageMeter
 
 NCM_CHUNK = 256  # buffer rows per exemplar-feature forward in NCM eval
@@ -59,6 +70,99 @@ class TrainState:
     # the run's host-side draws, which the host needs without a device read:
     # GDumb's evictions and re-init seeds, SCR's jitter order
     host: random.Random | None = None
+
+
+@dataclass
+class StackedState:
+    """P train states as one (the counterpart of ocl_tpu's [P, ...]-stacked
+    TrainState): the models and the distillation teachers as `Stacked`, an
+    optimizer with per-point hyperparameters, a StackedBuffer, and agent
+    state as [P, ...] tensors (dicts of them for EWC) beside shared Python
+    values. Each point keeps its own random draws: the generators and host
+    `random.Random`s are those of `lanes`, and point p draws from lane
+    `lane[p]` (a stacked run is its own lane; the grid points of one val run
+    share theirs, as their ocl_tpu states share a key)."""
+
+    model: Stacked
+    optimizer: StackedOptimizer
+    buffer: StackedBuffer | None
+    generators: list          # torch.Generator of each lane
+    hosts: list               # random.Random of each lane
+    lane: list                # [P] the lane of each point
+    agent: Any = None
+
+    @property
+    def points(self) -> int:
+        return len(self.lane)
+
+    def lane_index(self):
+        """The [P] lane of each point on the device, or None where point p is
+        lane p."""
+        if self.lane == list(range(len(self.generators))):
+            return None
+        return torch.tensor(self.lane, device=next(iter(self.model.params.values())).device)
+
+    def draw(self, draw_fn: Callable):
+        """`draw_fn(generator)` on each lane, stacked to [P, ...] leaves."""
+        trees = [draw_fn(g) for g in self.generators]
+        stacked = torch.utils._pytree.tree_map(lambda *xs: torch.stack(xs), *trees)
+        idx = self.lane_index()
+        if idx is None:
+            return stacked
+        return torch.utils._pytree.tree_map(lambda t: t[idx], stacked)
+
+
+def stack_ctx(ctx: TaskCtx, points: int) -> TaskCtx:
+    """One TaskCtx for every point: its masks as [P, C]."""
+    return TaskCtx(old_mask=ctx.old_mask.expand(points, -1),
+                   new_mask=ctx.new_mask.expand(points, -1), task_seen=ctx.task_seen)
+
+
+def point_map(ss: StackedState, fn: Callable, ctx: TaskCtx | None, *args):
+    """`fn(view, ctx, *args)` for every point, under `torch.func.vmap`.
+
+    `view` is a TrainState of one point: its `model` (and any teacher in its
+    `agent`) is the stacked model's base, bound to that point's tensors
+    (models.bind); its `buffer` a BufferState over the point's rows; its
+    agent dict the point's tensors beside the shared Python values; no
+    optimizer or generator (draws come in `args`). `ctx` is a TaskCtx with
+    [P, C] masks (stack_ctx), or None; `args` are [P, ...] tensors or
+    pytrees of them. Returns fn's tensors stacked to [P, ...]. Writes to the
+    view's buffer and BN buffers land in the stacked tensors; the buffer's
+    counters, which fn may advance, are shared and copied back once.
+
+    Autograd runs outside vmap: `loss.sum().backward()` on fn's [P] losses
+    puts each point's own gradient into the stacked leaves, since no point
+    reads another's tensors."""
+    ag = ss.agent if isinstance(ss.agent, dict) else {}
+    mods = {k: v for k, v in ag.items() if isinstance(v, Stacked)}
+    mapped = {k: v for k, v in ag.items() if isinstance(v, (torch.Tensor, dict))}
+    static = {k: v for k, v in ag.items() if k not in mods and k not in mapped}
+    buf = ss.buffer
+    masks = () if ctx is None else (ctx.old_mask, ctx.new_mask)
+    views = []
+
+    def one(model_t, buf_t, mod_t, mapped_t, masks_t, *a):
+        with contextlib.ExitStack() as stack:
+            model = stack.enter_context(bind(ss.model.base, model_t))
+            agent = None
+            if ss.agent is not None:
+                agent = dict(static, **mapped_t)
+                for k, t in mod_t.items():
+                    agent[k] = stack.enter_context(bind(mods[k].base, t))
+            view = TrainState(model=model, optimizer=None,
+                              buffer=None if buf is None else buf.point_view(buf_t),
+                              generator=None, agent=agent)
+            views.append(view)
+            pctx = None if ctx is None else TaskCtx(masks_t[0], masks_t[1], ctx.task_seen)
+            return fn(view, pctx, *a)
+
+    out = torch.func.vmap(one)(ss.model.tensors(), () if buf is None else buf.tensors(),
+                               {k: m.tensors() for k, m in mods.items()}, mapped, masks, *args)
+    if buf is not None:
+        buf.current_index = views[0].buffer.current_index
+        buf.n_seen_so_far = views[0].buffer.n_seen_so_far
+    return out
 
 
 class ContinualLearner:
@@ -134,11 +238,15 @@ class ContinualLearner:
         return TaskCtx(old_mask=old_mask.to(self.device), new_mask=new_mask.to(self.device),
                        task_seen=self.task_seen)
 
-    def after_train(self, state: TrainState, ctx: TaskCtx) -> TrainState:
+    def end_task_labels(self) -> None:
+        """The host's label bookkeeping at the end of a task."""
         self.old_labels += [l for l in self.new_labels if l not in self.old_labels]
         self.new_labels_zombie = list(self.new_labels)
         self.new_labels = []
         self.task_seen += 1
+
+    def after_train(self, state: TrainState, ctx: TaskCtx) -> TrainState:
+        self.end_task_labels()
         if self.trick.get("review_trick") and self.uses_buffer:
             review.review_pass(self, state, ctx)
         if self.needs_kd:
@@ -168,6 +276,94 @@ class ContinualLearner:
         t = np.float32(ctx.task_seen + 1)
         w = float(np.float32(1.0) / (t if self.trick.get("kd_trick") else np.sqrt(t)))
         return w * loss + (1.0 - w) * kd
+
+    # --------- stacked-state hooks (experiment/parallel_run.py and
+    # parallel_tune.py). The host's label bookkeeping is shared by every
+    # point, as ocl_tpu's agent0 carries it; agents whose end-of-task work
+    # reduces over leaves, or whose task is not a scan over the stream's
+    # batches, override these.
+
+    # When True, the tuner hands stacked_train_task the raw task arrays
+    # (x_train, y_train) of the val runs instead of batches: GDumb retrains
+    # on its balanced memory, not the stream.
+    stacked_consumes_raw = False
+
+    def before_task_stacked(self, ss: StackedState) -> StackedState:
+        return ss
+
+    def after_train_stacked(self, ss: StackedState, ctx: TaskCtx) -> StackedState:
+        """after_train for every point: the teacher takes each point's weights
+        and `has_teacher` stays [P]. (review_trick does not stack: the
+        runners send it to the sequential path.)"""
+        self.end_task_labels()
+        if self.needs_kd:
+            ss.agent["teacher"].copy_(ss.model)
+            ss.agent["has_teacher"].fill_(1.0)
+        return ss
+
+    def stacked_train_task(self, ss: StackedState, ctx: TaskCtx, xs, ys) -> StackedState:
+        """One task for every point: xs [P, n_batches, B, ...] and ys
+        [P, n_batches, B] (the tuner's shared batches expanded), one
+        `stacked_step` a batch, the losses read back once."""
+        loss_acc = [self.stacked_step(ss, ctx, xs[:, i], ys[:, i]) for i in range(xs.shape[1])]
+        if loss_acc and getattr(self.params, "debug_nans", False):
+            loss = torch.stack([la[0] for la in loss_acc]).cpu().numpy()
+            if not np.all(np.isfinite(loss)):
+                raise FloatingPointError("non-finite loss in task {} (--debug_nans)".format(
+                    self.task_seen))
+        return ss
+
+    def stacked_step(self, ss: StackedState, ctx: TaskCtx, xb, yb, draws=None):
+        """One online step of every point on xb [P, B, ...], yb [P, B];
+        returns (loss [P], accuracy [P]). `draws` as `step`'s, stacked to
+        [P, ...]; None draws them from the points' lanes."""
+        raise NotImplementedError("{} has no stacked step".format(type(self).__name__))
+
+    def evaluate_stacked(self, ss: StackedState, test_loaders):
+        """[P, len(test_loaders)] accuracies of every point: nearest class
+        mean (iCaRL, ncm_trick) or softmax. test_loaders as `evaluate`'s, each
+        tensor with a leading point axis [P, nb, ...] (the stacked runs' own
+        test sets) or without one (the tuner's shared sets)."""
+        if self.ncm_classify:
+            means = self.ncm_means_stacked(ss)
+            seen = torch.zeros(self.n_classes, dtype=torch.bool)
+            seen[self.old_labels] = True
+            seen = seen.to(self.device)
+
+            def predict(view, _, xb, means):
+                f = features_eval(view.model, xb)
+                f = f / torch.clamp(f.norm(dim=1, keepdim=True), min=1e-12)
+                d = (f[:, None, :] - means[None, :, :]).square().sum(-1)
+                return torch.where(seen[None, :], d, math.inf).argmin(1)
+
+            return self._accuracies_stacked(ss, test_loaders, predict, means)
+        return self._accuracies_stacked(
+            ss, test_loaders, lambda view, _, xb: forward_eval(view.model, xb).argmax(1))
+
+    def _accuracies_stacked(self, ss, test_loaders, predict, *extra):
+        p = ss.points
+        correct, total = [], []
+        for x, y, m in test_loaders:
+            if y.dim() == 2:  # shared: y [nb, B]
+                x, y, m = (t.expand(p, *t.shape) for t in (x, y, m))
+            c = torch.zeros(p, dtype=torch.int64, device=self.device)
+            for i in range(x.shape[1]):
+                pred = point_map(ss, predict, None, x[:, i], *extra)
+                c = c + ((pred == y[:, i]) & m[:, i]).sum(1)
+            correct.append(c)
+            total.append(m.sum((1, 2)))
+        correct = torch.stack(correct, 1).cpu().numpy()
+        total = torch.stack(total, 1).cpu().numpy()
+        return correct / np.maximum(total, 1)
+
+    def ncm_means_stacked(self, ss: StackedState):
+        """[P, n_classes, D] class means of every point's buffer, as
+        `ncm_means` makes them (with --abl_ncm_zero_empty too), each point's
+        noise drawn from its lane."""
+        dim = feature_dim_for(self.data, self.params.nf)
+        noise = ss.draw(lambda g: torch.randn(self.n_classes, dim, generator=g,
+                                              device=self.device))
+        return point_map(ss, lambda view, _, nz: self.ncm_means(view, nz), None, noise)
 
     def review_draws(self, state, batch):
         """The random draws of one review_trick batch: none here; SCR
@@ -338,9 +534,10 @@ class ContinualLearner:
         feats = torch.cat([features_eval(state.model, c) for c in buf.imgs.split(NCM_CHUNK)])
         feats = feats / torch.clamp(feats.norm(dim=1, keepdim=True), min=1e-12)
         w = valid_mask(buf).float()
-        sums = torch.zeros(self.n_classes, feats.shape[1], device=self.device)
-        sums.index_add_(0, buf.labels, feats * w[:, None])
-        cnts = torch.zeros(self.n_classes, device=self.device).index_add_(0, buf.labels, w)
+        # out of place, so that it also maps under vmap (ncm_means_stacked)
+        sums = torch.zeros(self.n_classes, feats.shape[1], device=self.device).index_add(
+            0, buf.labels, feats * w[:, None])
+        cnts = torch.zeros(self.n_classes, device=self.device).index_add(0, buf.labels, w)
         if noise is None:
             noise = torch.randn(self.n_classes, feature_dim_for(self.data, self.params.nf),
                                 generator=state.generator, device=self.device)

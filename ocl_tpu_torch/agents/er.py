@@ -17,13 +17,20 @@ Two schedules, as in ocl_tpu:
 Either way the buffer update follows with the new weights. kd_trick and
 kd_trick_star blend the batch loss (and, two-pass, the memory loss) with
 distillation from the previous task's model.
+
+The losses of a point (`fused_loss`, `batch_loss`, `memory_loss`,
+`combined_loss`) serve both the sequential step and `stacked_step`, which
+runs them, the retrieval and the update for every point under vmap
+(agents/base.py::point_map), every strategy included: MIR's virtual step
+reads each point's batch gradients, and GSS gates its replacements on the
+device (buffer/gss.py).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ocl_tpu_torch.agents.base import ContinualLearner
+from ocl_tpu_torch.agents.base import ContinualLearner, point_map
 from ocl_tpu_torch.buffer import build_retrieve, build_update
 from ocl_tpu_torch.models import forward_train
 
@@ -31,6 +38,11 @@ from ocl_tpu_torch.models import forward_train
 def batch_grads(model):
     """Parameter name -> its .grad (the batch gradients MIR reads)."""
     return {n: p.grad for n, p in model.named_parameters()}
+
+
+def stacked_grads(ss):
+    """batch_grads of every point: name -> the stacked leaf's .grad."""
+    return {n: p.grad for n, p in ss.model.params.items()}
 
 
 class ExperienceReplay(ContinualLearner):
@@ -58,33 +70,61 @@ class ExperienceReplay(ContinualLearner):
         self.update.run(state.model, state.buffer, xb, yb, draws["update"])
         return loss_b.detach(), acc_b
 
-    def fused_iter(self, state, ctx, xb, yb, ret_draws):
-        model, opt = state.model, state.optimizer
+    def fused_loss(self, state, ctx, xb, yb, mem):
+        """The fused schedule's losses of one point: one train-mode forward
+        over [batch; memory]; returns (loss_b + loss_m, loss_b, batch
+        accuracy)."""
+        mem_x, mem_y, mem_mask = mem
         batch = xb.shape[0]
-        with torch.no_grad():
-            mem_x, mem_y, mem_mask = self.retrieve.run(model, state.buffer, xb, yb, ret_draws)
-        opt.zero_grad()
         comb_mask = torch.cat([torch.ones_like(yb, dtype=torch.bool), mem_mask])
-        logits = forward_train(model, torch.cat([xb, mem_x]), comb_mask)
+        logits = forward_train(state.model, torch.cat([xb, mem_x]), comb_mask)
         loss_b = self.criterion(logits[:batch], yb, ctx)
         loss_b = self.maybe_kd_blend(loss_b, logits[:batch], xb, ctx, state.agent)
         # the masked mean is 0 when no memory row is valid (ocl_tpu's
         # jnp.where(jnp.any(mem_mask), loss_m, 0.0))
         loss_m = self.criterion(logits[batch:], mem_y, ctx, mem_mask)
-        (loss_b + loss_m).backward()
-        opt.step()
-        return loss_b, (logits[:batch].argmax(1) == yb).float().mean()
+        return loss_b + loss_m, loss_b, (logits[:batch].argmax(1) == yb).float().mean()
+
+    def batch_loss(self, state, ctx, xb, yb):
+        """Two-pass: the incoming batch's loss and accuracy."""
+        logits_b = forward_train(state.model, xb)
+        loss_b = self.criterion(logits_b, yb, ctx)
+        loss_b = self.maybe_kd_blend(loss_b, logits_b, xb, ctx, state.agent)
+        return loss_b, (logits_b.argmax(1) == yb).float().mean()
+
+    def memory_loss(self, state, ctx, mem_x, mem_y, mem_mask):
+        """Two-pass: the memory rows' loss (in ASER mode the pass only folds
+        their BN statistics, and the loss is 0)."""
+        logits_m = forward_train(state.model, mem_x, mem_mask)
+        if self.aser_mode:
+            return logits_m.new_zeros(())
+        loss_m = self.criterion(logits_m, mem_y, ctx, mem_mask)
+        return self.maybe_kd_blend(loss_m, logits_m, mem_x, ctx, state.agent, mem_mask)
+
+    def combined_loss(self, state, ctx, xb, yb, mem_x, mem_y, mem_mask):
+        """ASER mode: the loss of one combined [memory; batch] pass."""
+        comb_mask = torch.cat([mem_mask, torch.ones_like(yb, dtype=torch.bool)])
+        comb_x, comb_y = torch.cat([mem_x, xb]), torch.cat([mem_y, yb])
+        logits = forward_train(state.model, comb_x, comb_mask)
+        loss = self.criterion(logits, comb_y, ctx, comb_mask)
+        return self.maybe_kd_blend(loss, logits, comb_x, ctx, state.agent, comb_mask)
+
+    def fused_iter(self, state, ctx, xb, yb, ret_draws):
+        with torch.no_grad():
+            mem = self.retrieve.run(state.model, state.buffer, xb, yb, ret_draws)
+        state.optimizer.zero_grad()
+        loss, loss_b, acc_b = self.fused_loss(state, ctx, xb, yb, mem)
+        loss.backward()
+        state.optimizer.step()
+        return loss_b, acc_b
 
     def two_pass_iter(self, state, ctx, xb, yb, ret_draws):
         model, opt, buf = state.model, state.optimizer, state.buffer
         opt.zero_grad()
         with torch.set_grad_enabled(not self.aser_mode):
-            logits_b = forward_train(model, xb)
-            loss_b = self.criterion(logits_b, yb, ctx)
-            loss_b = self.maybe_kd_blend(loss_b, logits_b, xb, ctx, state.agent)
+            loss_b, acc_b = self.batch_loss(state, ctx, xb, yb)
         if not self.aser_mode:
             loss_b.backward()
-        acc_b = (logits_b.argmax(1) == yb).float().mean()
 
         mem_x, mem_y, mem_mask = self.retrieve.run(
             model, buf, xb, yb, ret_draws, grads=None if self.aser_mode else batch_grads(model))
@@ -95,18 +135,60 @@ class ExperienceReplay(ContinualLearner):
         # adds zero gradients (models/layers.py), so it changes nothing either
         if buf.current_index > 0:
             with torch.set_grad_enabled(not self.aser_mode):
-                logits_m = forward_train(model, mem_x, mem_mask)
-                if not self.aser_mode:
-                    loss_m = self.criterion(logits_m, mem_y, ctx, mem_mask)
-                    loss_m = self.maybe_kd_blend(loss_m, logits_m, mem_x, ctx, state.agent,
-                                                 mem_mask)
-                    loss_m.backward()
+                loss_m = self.memory_loss(state, ctx, mem_x, mem_y, mem_mask)
+            if not self.aser_mode:
+                loss_m.backward()
 
         if self.aser_mode:
-            comb_mask = torch.cat([mem_mask, torch.ones_like(yb, dtype=torch.bool)])
-            comb_x, comb_y = torch.cat([mem_x, xb]), torch.cat([mem_y, yb])
-            logits = forward_train(model, comb_x, comb_mask)
-            loss = self.criterion(logits, comb_y, ctx, comb_mask)
-            self.maybe_kd_blend(loss, logits, comb_x, ctx, state.agent, comb_mask).backward()
+            self.combined_loss(state, ctx, xb, yb, mem_x, mem_y, mem_mask).backward()
         opt.step()
+        return loss_b, acc_b
+
+    # ------------------------------------------------------------- stacked
+
+    def stacked_retrieve(self, ss, ctx, xb, yb, ret_draws, grads=None):
+        """Every point's retrieval; `grads` the stacked batch gradients by
+        parameter name (MIR's virtual step reads them)."""
+        with torch.no_grad():
+            return point_map(ss, lambda v, c, x, y, d, g: self.retrieve.run(
+                v.model, v.buffer, x, y, d, grads=g or None), ctx, xb, yb, ret_draws, grads or {})
+
+    def stacked_update(self, ss, ctx, xb, yb, upd_draws):
+        with torch.no_grad():
+            point_map(ss, lambda v, c, x, y, d: self.update.run(v.model, v.buffer, x, y, d),
+                      ctx, xb, yb, upd_draws)
+
+    def stacked_step(self, ss, ctx, xb, yb, draws=None):
+        if draws is None:
+            draws = ss.draw(lambda g: self.draw(g, xb.shape[1]))
+        run = self.stacked_fused_iter if self.fused else self.stacked_two_pass_iter
+        for ret_draws in draws["retrieve"]:
+            loss_b, acc_b = run(ss, ctx, xb, yb, ret_draws)
+        self.stacked_update(ss, ctx, xb, yb, draws["update"])
+        return loss_b.detach(), acc_b
+
+    def stacked_fused_iter(self, ss, ctx, xb, yb, ret_draws):
+        mem = self.stacked_retrieve(ss, ctx, xb, yb, ret_draws)
+        ss.optimizer.zero_grad()
+        loss, loss_b, acc_b = point_map(ss, self.fused_loss, ctx, xb, yb, mem)
+        loss.sum().backward()
+        ss.optimizer.step()
+        return loss_b, acc_b
+
+    def stacked_two_pass_iter(self, ss, ctx, xb, yb, ret_draws):
+        ss.optimizer.zero_grad()
+        with torch.set_grad_enabled(not self.aser_mode):
+            loss_b, acc_b = point_map(ss, self.batch_loss, ctx, xb, yb)
+        if not self.aser_mode:
+            loss_b.sum().backward()
+        mem = self.stacked_retrieve(ss, ctx, xb, yb, ret_draws,
+                                    None if self.aser_mode else stacked_grads(ss))
+        if ss.buffer.current_index > 0:
+            with torch.set_grad_enabled(not self.aser_mode):
+                loss_m = point_map(ss, self.memory_loss, ctx, *mem)
+            if not self.aser_mode:
+                loss_m.sum().backward()
+        if self.aser_mode:
+            point_map(ss, self.combined_loss, ctx, xb, yb, *mem).sum().backward()
+        ss.optimizer.step()
         return loss_b, acc_b

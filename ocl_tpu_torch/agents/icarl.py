@@ -18,6 +18,11 @@ ocl_tpu decides "is there a teacher" on the device with `lax.cond`; here it
 is a host fact, the task count. On the first task the step runs on the
 incoming batch alone: ocl_tpu's memory rows are all masked out there, and a
 masked row changes neither the BN statistics nor the loss.
+
+Stacked (the grid tuner, counterpart of ocl_tpu/agents/icarl.py:148-168):
+the compact label map and the column masks are shared by every point, the
+step's loss runs under vmap with them broadcast, and each point keeps its
+own mask of updated slots ([P, mem_size + 1]).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ocl_tpu_torch.agents.base import ContinualLearner
+from ocl_tpu_torch.agents.base import ContinualLearner, point_map
 from ocl_tpu_torch.buffer import build_update
 from ocl_tpu_torch.buffer.retrieve import gumbel, random_retrieve
 from ocl_tpu_torch.models import forward_eval, forward_teacher, forward_train, snapshot
@@ -72,17 +77,15 @@ class Icarl(ContinualLearner):
         self.old_cols = (cols < len(self.old_labels)).to(self.device)
         self.updated = torch.zeros(self.params.mem_size + 1, dtype=torch.bool, device=self.device)
 
-    def step(self, state, ctx, xb, yb, draws=None):
-        model, opt, buf = state.model, state.optimizer, state.buffer
-        if draws is None:
-            draws = self.draw(state.generator, xb.shape[0])
+    def loss(self, state, ctx, xb, yb, updated, g):
+        """One point's loss; `updated` [mem_size + 1] its mask of updated
+        slots, `g` its retrieval noise."""
         batch = xb.shape[0]
         targets = F.one_hot(self.label_map[yb], self.n_classes).float()
         x_all, row_mask = xb, None
         if ctx.task_seen > 0:
-            excl = None if self.abl_noexcl else self.updated[:-1]
-            mem_x, _, _, mem_mask = random_retrieve(buf, batch, draws["retrieve"]["g"],
-                                                    excl_mask=excl)
+            excl = None if self.abl_noexcl else updated[:-1]
+            mem_x, _, _, mem_mask = random_retrieve(state.buffer, batch, g, excl_mask=excl)
             x_all = torch.cat([xb, mem_x])
             row_mask = torch.cat([torch.ones_like(yb, dtype=torch.bool), mem_mask])
             targets = torch.cat([targets, torch.zeros_like(targets)])
@@ -95,9 +98,15 @@ class Icarl(ContinualLearner):
                 # deepcopies it there): batch-statistic BN over the valid rows
                 q = torch.sigmoid(forward_teacher(teacher, x_all, w=row_mask))
             targets = torch.where(self.old_cols[None, :], q, targets)
+        logits = forward_train(state.model, x_all, row_mask)
+        return bce_ohe(logits, targets, class_mask=self.col_mask, mask=row_mask)
+
+    def step(self, state, ctx, xb, yb, draws=None):
+        model, opt, buf = state.model, state.optimizer, state.buffer
+        if draws is None:
+            draws = self.draw(state.generator, xb.shape[0])
         opt.zero_grad()
-        logits = forward_train(model, x_all, row_mask)
-        loss = bce_ohe(logits, targets, class_mask=self.col_mask, mask=row_mask)
+        loss = self.loss(state, ctx, xb, yb, self.updated, draws["retrieve"]["g"])
         loss.backward()
         opt.step()
         replaced = self.update.run(model, buf, xb, yb, draws["update"])
@@ -109,3 +118,30 @@ class Icarl(ContinualLearner):
         any (ocl_tpu/agents/icarl.py:170-180)."""
         state.agent["teacher"].load_state_dict(state.model.state_dict())
         return super().after_train(state, ctx)
+
+    # ------------------------------------------------------------- stacked
+
+    def stacked_train_task(self, ss, ctx, xs, ys):
+        self.start_task()
+        self.updated = torch.zeros(ss.points, self.params.mem_size + 1, dtype=torch.bool,
+                                   device=self.device)
+        return super().stacked_train_task(ss, ctx, xs, ys)
+
+    def stacked_step(self, ss, ctx, xb, yb, draws=None):
+        if draws is None:
+            draws = ss.draw(lambda g: self.draw(g, xb.shape[1]))
+        ss.optimizer.zero_grad()
+        loss = point_map(ss, self.loss, ctx, xb, yb, self.updated, draws["retrieve"]["g"])
+        loss.sum().backward()
+        ss.optimizer.step()
+        with torch.no_grad():
+            replaced = point_map(ss, lambda v, c, x, y, d: self.update.run(v.model, v.buffer,
+                                                                           x, y, d),
+                                 ctx, xb, yb, draws["update"])
+        rows = torch.arange(ss.points, device=self.device)[:, None]
+        self.updated[rows, torch.where(replaced >= 0, replaced, ss.buffer.mem_size)] = True
+        return loss.detach(), torch.zeros(ss.points, device=self.device)
+
+    def after_train_stacked(self, ss, ctx):
+        ss.agent["teacher"].copy_(ss.model)
+        return super().after_train_stacked(ss, ctx)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ocl_tpu_torch.agents.base import ContinualLearner
+from ocl_tpu_torch.agents.base import ContinualLearner, point_map
 from ocl_tpu_torch.models import forward_teacher, forward_train
 from ocl_tpu_torch.ops.losses import kd_loss
 
@@ -19,14 +19,25 @@ from ocl_tpu_torch.ops.losses import kd_loss
 class Lwf(ContinualLearner):
     uses_buffer = False
 
-    def step(self, state, ctx, xb, yb, draws=None):
-        model, opt, ag = state.model, state.optimizer, state.agent
-        opt.zero_grad()
-        logits = forward_train(model, xb)
+    def loss(self, state, ctx, xb, yb):
+        """One point's loss and batch accuracy."""
+        ag = state.agent
+        logits = forward_train(state.model, xb)
         loss_new = self.criterion(logits, yb, ctx)
         loss_old = kd_loss(logits, forward_teacher(ag["teacher"], xb)) * ag["has_teacher"]
         w = float(np.float32(1.0) / np.float32(ctx.task_seen + 1))
-        loss = w * loss_new + (1.0 - w) * loss_old
+        return w * loss_new + (1.0 - w) * loss_old, (logits.argmax(1) == yb).float().mean()
+
+    def step(self, state, ctx, xb, yb, draws=None):
+        state.optimizer.zero_grad()
+        loss, acc = self.loss(state, ctx, xb, yb)
         loss.backward()
-        opt.step()
-        return loss.detach(), (logits.argmax(1) == yb).float().mean()
+        state.optimizer.step()
+        return loss.detach(), acc
+
+    def stacked_step(self, ss, ctx, xb, yb, draws=None):
+        ss.optimizer.zero_grad()
+        loss, acc = point_map(ss, self.loss, ctx, xb, yb)
+        loss.sum().backward()
+        ss.optimizer.step()
+        return loss.detach(), acc

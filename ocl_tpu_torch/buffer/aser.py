@@ -15,6 +15,7 @@ import torch
 from ocl_tpu_torch.buffer import Strategy
 from ocl_tpu_torch.buffer.retrieve import (
     class_balanced_sample,
+    exclusion_mask,
     gumbel,
     random_retrieve,
     sample_slots,
@@ -27,13 +28,6 @@ from ocl_tpu_torch.ops.knn_sv import knn_sv, masked_max, masked_mean, masked_min
 
 def _stable_argsort(v):
     return torch.sort(v, stable=True).indices
-
-
-def _exclusion(idx, mask, mem):
-    """[mem] bool, True at idx[i] where mask[i]."""
-    excl = torch.zeros(mem + 1, dtype=torch.bool, device=idx.device)
-    excl[torch.where(mask, idx, mem)] = True
-    return excl[:mem]
 
 
 def build_aser_update(agent) -> Strategy:
@@ -75,7 +69,7 @@ def build_aser_update(agent) -> Strategy:
         eval_mask = torch.cat([ev_mask, minority])
 
         # candidate set: random memory sample excluding eval + overflow batch
-        excl = _exclusion(ev_idx, ev_mask, mem)
+        excl = exclusion_mask(ev_idx, ev_mask, mem)
         cd_idx, cd_mask = sample_slots(draws["cand"], valid_mask(buf) & ~excl, n_total_smp)
         cand_x = torch.cat([buf.imgs[cd_idx], x])
         cand_y = torch.cat([buf.labels[cd_idx], y])
@@ -160,7 +154,7 @@ def build_aser_retrieve(agent) -> Strategy:
             af, cf = feats[: x.shape[0]], feats[x.shape[0]:]
             sv = -sum_rows(knn_sv(af, y, batch_mask, cf, cand_y, cand_mask, k))
         else:
-            excl = _exclusion(cand_idx, cand_mask, buf.mem_size)
+            excl = exclusion_mask(cand_idx, cand_mask, buf.mem_size)
             coop_x, coop_y, _, coop_mask = class_balanced_sample(
                 buf, n_smp_cls, draws["coop"], excl_mask=excl)
             feats = features_eval(model, torch.cat([x, coop_x, cand_x]))

@@ -15,7 +15,10 @@ against memory, max_i <grad(L_i), g_batch> < 0 (the reference's
 dots are one forward-mode `torch.func.jvp` of the bank batches' losses in the
 batch-gradient direction, so the bank is built only on steps that replace.
 That gate is a branch on device data: it costs one host read a full-buffer
-step, the step's only one. Candidate slots are drawn in proportion to their
+step, the step's only one. Under vmap (stacked runs, agents/base.py::
+point_map) each point has its own gate and the host cannot read it: every
+point builds the bank and its gate masks its writes, which replaces exactly
+where the branch would. Candidate slots are drawn in proportion to their
 normalised score (Gumbel top-k on log w), and a candidate is replaced with
 probability b/(s+b), s = (item_sim+1)/2, b = (slot_score+1)/2.
 
@@ -102,9 +105,13 @@ def build_gss_update(agent):
         xs, ys, ms, row_valid = sample_bank_batches(buf, draws["bank"])
         bgrad = grad(lambda p: ce_eval(model, p, x, y))(params)
         dots = bank_dots(model, params, xs, ys, ms, bgrad)
-        batch_sim = torch.where(row_valid, dots, NEG_INF).amax()
-        if not bool(batch_sim < 0):   # the one host read of a full-buffer step
+        gate = torch.where(row_valid, dots, NEG_INF).amax() < 0
+        if torch._C._functorch.is_batchedtensor(gate):
+            pass   # one gate a point: it masks the writes below
+        elif not bool(gate):   # the one host read of a full-buffer step
             return
+        else:
+            gate = None
         bank = mem_grad_bank(model, params, xs, ys, ms)
         score = buf.score
         w = (score - score.min()) / (score.max() - score.min() + 0.01)
@@ -114,6 +121,8 @@ def build_gss_update(agent):
         s = (item_sim + 1.0) / 2.0
         b = (score[cand] + 1.0) / 2.0
         repl = draws["coin"] < b / (s + b)
+        if gate is not None:
+            repl = repl & gate
         new_score = torch.where(repl, item_sim, score[cand])
         write_slots(buf, cand, x, y, repl)
         buf.slot_score[cand] = new_score

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ocl_tpu_torch.buffer.retrieve import gumbel, random_retrieve, top_k_indices
+from ocl_tpu_torch.buffer.retrieve import exclusion_mask, gumbel, random_retrieve, top_k_indices
 from ocl_tpu_torch.buffer.state import valid_mask
 from ocl_tpu_torch.config import n_classes_match
 from ocl_tpu_torch.ops.losses import NEG_INF
@@ -84,9 +84,8 @@ def build_mem_match_retrieve(agent):
     def retrieve(model, buf, x, y, draws, grads=None):
         mem = buf.mem_size
         cx, cy, cidx, cmask = random_retrieve(buf, num_retrieve, draws["g"])
-        excl = torch.zeros(mem + 1, dtype=torch.bool, device=cidx.device)
-        excl[torch.where(cmask, cidx, mem)] = True
-        midx, ok = match_labels(buf, n_classes, cy, draws["match"], excl_mask=excl[:mem])
+        midx, ok = match_labels(buf, n_classes, cy, draws["match"],
+                                excl_mask=exclusion_mask(cidx, cmask, mem))
         warm = buf.n_seen_so_far > num_retrieve * warmup
         mask = cmask & ok & warm
         return (torch.cat([cx, buf.imgs[midx]]), torch.cat([cy, buf.labels[midx]]),

@@ -29,6 +29,13 @@ def top_k_indices(scores, k: int):
     return torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
+def exclusion_mask(idx, mask, mem: int):
+    """[mem] bool, True at idx[i] where mask[i] (out of place, so that it
+    also maps under vmap)."""
+    excl = torch.zeros(mem + 1, dtype=torch.bool, device=idx.device)
+    return excl.index_put((torch.where(mask, idx, mem),), torch.ones_like(mask))[:mem]
+
+
 def sample_slots(g, eligible, k: int):
     """Uniformly sample up to k True positions of `eligible` w/o replacement,
     with Gumbel noise `g` (eligible's shape).

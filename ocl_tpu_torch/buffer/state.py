@@ -78,3 +78,51 @@ def write_slots(buf: BufferState, slot_idx, x, y, write_mask) -> None:
     safe_idx = torch.where(write_mask, slot_idx, mem)
     buf.slot_imgs[safe_idx] = x
     buf.slot_labels[safe_idx] = y
+
+
+@dataclass
+class StackedBuffer(BufferState):
+    """P buffers of one shape as [P, mem_size + 1, ...] tensors (the stacked
+    runs and tuner). The counters are shared Python ints: every point sees
+    equally sized batches in lockstep, so they agree. `point_view` gives one
+    point's BufferState under vmap."""
+
+    @property
+    def mem_size(self) -> int:
+        return self.slot_labels.shape[1] - 1
+
+    @property
+    def imgs(self) -> torch.Tensor:
+        return self.slot_imgs[:, :-1]
+
+    @property
+    def labels(self) -> torch.Tensor:
+        return self.slot_labels[:, :-1]
+
+    @property
+    def score(self) -> torch.Tensor:
+        return self.slot_score[:, :-1]
+
+    def tensors(self):
+        return self.slot_imgs, self.slot_labels, self.slot_score, self.class_counts
+
+    def point_view(self, tensors) -> BufferState:
+        """A BufferState over one point's `tensors` (as `tensors()` orders
+        them) with these counters."""
+        return BufferState(*tensors, current_index=self.current_index,
+                           n_seen_so_far=self.n_seen_so_far)
+
+    def point(self, p: int) -> BufferState:
+        """Point p's buffer, copied."""
+        return self.point_view(tuple(t[p].clone() for t in self.tensors()))
+
+
+def stack_buffers(bufs) -> StackedBuffer:
+    """The buffers `bufs` as one StackedBuffer (copies); their counters must
+    agree."""
+    counters = {(b.current_index, b.n_seen_so_far) for b in bufs}
+    if len(counters) != 1:
+        raise ValueError("stacked buffers must agree on their counters, got {}".format(counters))
+    return StackedBuffer(*(torch.stack(ts) for ts in zip(
+        *((b.slot_imgs, b.slot_labels, b.slot_score, b.class_counts) for b in bufs))),
+        current_index=bufs[0].current_index, n_seen_so_far=bufs[0].n_seen_so_far)

@@ -151,7 +151,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="CN-DPM expert-slot capacity")
     parser.add_argument("--parallel_runs", dest="parallel_runs", default=False,
                         type=boolean_string,
-                        help="train all runs as one program (not ported yet)")
+                        help="train all runs stacked, one launch sequence for every run")
     parser.add_argument("--ckpt_dir", dest="ckpt_dir", default=None,
                         help="checkpoint directory: save after every task, resume "
                              "after the last saved one")

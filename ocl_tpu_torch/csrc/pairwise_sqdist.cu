@@ -1,5 +1,7 @@
 // Pairwise squared euclidean distances, out[i, j] = |a_i|^2 + |b_j|^2 - 2 a_i.b_j,
-// for a [n, d] and b [m, d] in float32, row-major and contiguous.
+// for a [n, d] and b [m, d] in float32, row-major and contiguous; or, in one
+// launch, for `points` such pairs stored back to back, a [points, n, d] and
+// b [points, m, d] into out [points, n, m] (the stacked runs' batched call).
 //
 // Replaces the Pallas TPU kernel ocl_tpu/ops/pallas/distance.py:_kernel, which
 // holds both operands in VMEM in one padded block and runs the cross term on
@@ -53,8 +55,14 @@
 // <= 14.2 MFLOP the fp32 pipes of 132 SMs finish the arithmetic in ~0.2 us.
 // The tiling was chosen by device time at the main path's shapes (PERF.md).
 //
-// The launch plan (tiling, copy width, slab, buffers, grid, threads, shared
-// bytes) is computed in Python, ocl_tpu_torch/ops/distance.py::launch_plan, and
+// A point axis. Under torch.func.vmap (P stacked runs or grid points) the
+// P products of one call are independent and equally shaped, so one launch
+// takes them all: grid row blockIdx.y is the point, and a, b and out advance
+// by that point's stride (n*d, m*d, n*m floats); the tiling above is that of
+// each point. Where d % 4 == 0, a point's rows stay 16-byte aligned.
+//
+// The launch plan (tiling, copy width, slab, buffers, grid, points, threads,
+// shared bytes) is computed in Python, ocl_tpu_torch/ops/distance.py::launch_plan, and
 // passed in. The C entry checks it against the tiling built here, launches on
 // the caller's stream, allocates nothing, and returns cudaGetLastError() so
 // the wrapper can raise.
@@ -76,6 +84,7 @@ constexpr int kCross = kTileM * kTileN;    // cross terms of a group
 constexpr int kCopiers = kThreads / kRows; // threads that copy one row
 constexpr int kSmemMax = 232448;           // dynamic shared bytes a block may opt in to
 constexpr int kSmemDefault = 49152;        // and may use without opting in
+constexpr int kMaxPoints = 65535;          // grid rows a launch may have (gridDim.y)
 static_assert(kGroups == kRows, "each group sums one row norm");
 static_assert(kCross + 1 <= kLanes, "one lane stores each sum of a group");
 static_assert(kThreads % kRows == 0 && 32 % kLanes == 0, "rows and groups split evenly");
@@ -91,6 +100,7 @@ struct LaunchPlan {
     int slab;              // floats of each row a copy round brings
     int buffers;           // 1: all of d in one round; 2: a ring of two slabs
     int threads, grid, smem_bytes;
+    int points;            // products of one launch, one grid row each
 };
 
 template <int VEC> struct Vec;
@@ -149,6 +159,10 @@ pairwise_sqdist_kernel(const float* __restrict__ a, const float* __restrict__ b,
     extern __shared__ float4 smem4[];
     float* const smem = reinterpret_cast<float*>(smem4);
 
+    const long long point = blockIdx.y;
+    a += point * n * d;
+    b += point * m * d;
+    out += point * n * m;
     const int g = threadIdx.x / kLanes;  // the group; it sums the norm of block row g
     const int l = threadIdx.x % kLanes;
     const int tiles_n = (m + kBlockN - 1) / kBlockN;
@@ -249,7 +263,9 @@ Kernel kernel_for(const LaunchPlan& p) {
 // The plan must be one this file builds, for these pointers: a plan that is
 // not is refused rather than launched.
 bool plan_fits(const LaunchPlan& p, const void* a, const void* b) {
-    if (p.n < 1 || p.m < 1 || p.d < 0 || p.slab < 0) return false;
+    if (p.n < 1 || p.m < 1 || p.d < 0 || p.slab < 0 || p.points < 1 || p.points > kMaxPoints) {
+        return false;
+    }
     const long long blocks = static_cast<long long>((p.n + kBlockM - 1) / kBlockM) *
                              ((p.m + kBlockN - 1) / kBlockN);
     const bool aligned =
@@ -287,7 +303,7 @@ extern "C" int ocl_pairwise_sqdist_f32(const void* a, const void* b, void* out,
         static const cudaError_t opted = opt_in_large_smem();  // once per process
         if (opted != cudaSuccess) return static_cast<int>(opted);
     }
-    kernel<<<p.grid, kThreads, p.smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<dim3(p.grid, p.points), kThreads, p.smem_bytes, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out),
         p.n, p.m, p.d, p.slab);
     return static_cast<int>(cudaGetLastError());

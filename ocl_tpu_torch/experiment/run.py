@@ -26,16 +26,7 @@ from ocl_tpu_torch.utils import checkpoint
 from ocl_tpu_torch.utils.io import load_yaml
 from ocl_tpu_torch.utils.profiling import Throughput
 
-# flags of ocl_tpu's runner whose subsystems are not ported yet, with the
-# value that asks for nothing from them
-_NOT_PORTED = {"parallel_runs": False}
-
-
 def check_supported(params):
-    for flag, ok in _NOT_PORTED.items():
-        if getattr(params, flag, ok) != ok:
-            raise NotImplementedError("--{} {} is not ported yet".format(
-                flag, getattr(params, flag)))
     if params.agent not in agents:
         raise NotImplementedError("agent {!r} is not ported yet; available: {}".format(
             params.agent, ", ".join(sorted(agents))))

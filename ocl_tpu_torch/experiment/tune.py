@@ -5,8 +5,9 @@ experiment/tune_hyperparam.py:10-41 and experiment/run.py:180-375).
 Each grid point is a full (model, agent) run, `num_runs_val` times, on the
 tuning tasks; the best Avg_End_Acc wins, then the run trains on the rest of
 the stream with the winning params (`single_tune`), or on the whole stream
-again (`--train_val`, `single_tune_train_val`). ocl_tpu's `--parallel_runs`
-(every grid point as one stacked program) is not ported yet and raises.
+again (`--train_val`, `single_tune_train_val`). With `--parallel_runs`, a
+grid of learning rates and weight decays trains every (grid point, val run)
+pair at once (experiment/parallel_tune.py).
 """
 
 from __future__ import annotations
@@ -49,6 +50,18 @@ def tune_hyper(tune_data, tune_test_loaders, default_params, tune_params):
     `tune_data`, run r of a point seeded seed + 1000 + r."""
     grid = parameter_grid(tune_params)
     print(len(grid))
+    if getattr(default_params, "parallel_runs", False):
+        from ocl_tpu_torch.experiment.parallel_tune import (
+            supports_parallel_grid,
+            tune_hyper_parallel,
+        )
+
+        if supports_parallel_grid(default_params, tune_params):
+            return tune_hyper_parallel(tune_data, tune_test_loaders, default_params,
+                                       tune_params, grid, _merged)
+        print("[parallel_runs] grid not vmappable (non-scalar hyperparams, "
+              "agent, or over the stacked-state memory budget) — "
+              "sequential tuning")
     tune_accs = []
     for param_set in grid:
         print(param_set)

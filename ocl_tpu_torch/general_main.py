@@ -20,6 +20,10 @@ def main(args):
     np.random.seed(args.seed)
     random.seed(args.seed)
     args = finalize(args)
+    if getattr(args, "parallel_runs", False):
+        from ocl_tpu_torch.experiment.parallel_run import multiple_run_parallel
+
+        return multiple_run_parallel(args, store=args.store, save_path=args.save_path)
     return multiple_run(args, store=args.store, save_path=args.save_path)
 
 

@@ -23,6 +23,11 @@ teacher, EWC's parameter-shaped trees and flags), and `adam_from_jax` /
 `ScaleByAdamState` (count, mu, nu) and torch.optim.Adam's per-parameter
 `step`, `exp_avg`, `exp_avg_sq`.
 
+`stacked_from_jax` / `stacked_to_jax` and `stacked_agent_from_jax` /
+`stacked_agent_to_jax` carry a stacked state (ocl_tpu's vmapped
+TrainState, every leaf [P, ...]) point by point through the functions
+above, to the port's `models.Stacked` and stacked agent dict and back.
+
 `ndpm_from_jax` / `ndpm_to_jax` carry CN-DPM's mixture (the stacked `vae`
 and `cls` trees and the dummy expert) between ocl_tpu's pytree and the
 state dict of `ocl_tpu_torch.models.ndpm.NDPM`: convs HWIO -> OIHW, the
@@ -200,6 +205,87 @@ def adam_to_jax(optimizer, model) -> dict:
     return {"count": np.int32(int(states[0]["step"])),
             "mu": to_jax({n: s["exp_avg"] for (n, _), s in zip(named, states)})[0],
             "nu": to_jax({n: s["exp_avg_sq"] for (n, _), s in zip(named, states)})[0]}
+
+
+# ----------------------------------------------------------------- stacked
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _points(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return np.asarray(tree).shape[0]
+
+
+def _point(tree, p):
+    """Point p of a pytree of [P, ...] numpy leaves."""
+    return _tree_map(lambda a: np.asarray(a)[p], tree)
+
+
+def _stack_numpy(trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_numpy([t[k] for t in trees]) for k in first}
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def stacked_from_jax(params, batch_stats, model):
+    """ocl_tpu's stacked (params, batch_stats) (numpy leaves [P, ...]) ->
+    `models.Stacked` of copies of `model` holding each point's weights."""
+    import copy
+
+    from ocl_tpu_torch.models import stack_models
+
+    models = []
+    for p in range(_points(params)):
+        m = copy.deepcopy(model)
+        m.load_state_dict(from_jax(_point(params, p), _point(batch_stats, p)))
+        models.append(m)
+    return stack_models(models)
+
+
+def stacked_to_jax(stacked) -> tuple[dict, dict]:
+    """`models.Stacked` -> ocl_tpu's stacked (params, batch_stats), numpy
+    leaves [P, ...]."""
+    trees = [to_jax({**{k: v[p] for k, v in stacked.params.items()},
+                     **{k: v[p] for k, v in stacked.buffers.items()}})
+             for p in range(stacked.points)]
+    return _stack_numpy([t[0] for t in trees]), _stack_numpy([t[1] for t in trees])
+
+
+def stacked_agent_from_jax(ag, model) -> dict:
+    """ocl_tpu's stacked agent pytree (numpy leaves [P, ...]) -> the port's
+    stacked agent dict (as experiment/parallel_run.py::_stack builds it)."""
+    from ocl_tpu_torch.experiment.parallel_run import _stack_agent
+
+    return _stack_agent([agent_from_jax(_point(ag, p), model) for p in range(_points(ag))])
+
+
+def stacked_agent_to_jax(agent) -> dict:
+    """The port's stacked agent dict -> ocl_tpu's stacked agent pytree."""
+    from ocl_tpu_torch.models import Stacked
+
+    points = []
+    p_count = next(v.points if isinstance(v, Stacked) else v.shape[0]
+                   for v in agent.values() if isinstance(v, (Stacked, torch.Tensor)))
+    for p in range(p_count):
+        one = {}
+        for k, v in agent.items():
+            if isinstance(v, Stacked):
+                one[k] = v.point(p)
+            elif isinstance(v, torch.Tensor):
+                one[k] = v[p]
+            elif isinstance(v, dict):
+                one[k] = {n: t[p] for n, t in v.items()}
+            else:
+                one[k] = v
+        points.append(agent_to_jax(one))
+    return _stack_numpy(points)
 
 
 # ------------------------------------------------------------------ CN-DPM

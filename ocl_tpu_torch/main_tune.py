@@ -3,11 +3,15 @@
     python -m ocl_tpu_torch.main_tune --general config/general_1.yml \\
         --data config/data/synthetic/synthetic_nc.yml \\
         --default config/agent/er/er_1k.yml --tune config/agent/er/er_tune.yml \\
-        [--trick labels_trick] [--train_val True] [--device cpu]
+        [--trick labels_trick] [--train_val True] [--parallel_runs True] \
+        [--device cpu]
 
 Tunes every run on its first num_val tasks over the grid of the --tune
 file, and pickles the result under config/global.yml's result path
-(experiment/tune.py::multiple_run_tune_separate).
+(experiment/tune.py::multiple_run_tune_separate). With --parallel_runs
+True (or `parallel_runs: true` in the general file) a learning-rate /
+weight-decay grid trains all its points stacked
+(experiment/parallel_tune.py).
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ def main(args):
     if args.trick:
         trick[args.trick] = True
     general_params["trick"] = trick
+    if args.parallel_runs is not None:
+        general_params["parallel_runs"] = args.parallel_runs
     extra = {"device": args.device}
     if args.nf is not None:
         extra["nf"] = args.nf
@@ -55,6 +61,8 @@ def build_parser():
     parser.add_argument("--verbose", type=boolean_string, default=False)
     parser.add_argument("--train_val", type=boolean_string, default=False)
     parser.add_argument("--trick", type=str, default=None)
+    parser.add_argument("--parallel_runs", type=boolean_string, default=None,
+                        help="train the grid's points stacked (default: the general file's)")
     parser.add_argument("--nf", dest="nf", default=None, type=int,
                         help="override the model's base width (for small CPU runs)")
     parser.add_argument("--device", dest="device", default="cuda",

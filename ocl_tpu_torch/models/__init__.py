@@ -8,13 +8,23 @@ train-mode forward folds the batch's BN statistics into the model's running
 buffers in place. A distillation teacher is a frozen copy of the model
 (`snapshot`), and `functional_forward` runs the model on other tensors
 (MIR's virtual step, GSS's per-sample gradients through `torch.func`).
+
+Stacked models (the stacked runs and tuner, experiment/parallel_run.py):
+`Stacked` holds P models of one architecture as [P, ...] tensors, and
+`bind` runs a model's own code on one point's tensors under
+`torch.func.vmap`, so the forwards above serve every point in one launch
+sequence, the train-mode BN folding each point's statistics into that
+point's running buffers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+from dataclasses import dataclass
 
 import torch
+from torch.nn.utils.stateless import _reparametrize_module
 
 from ocl_tpu_torch.config import input_size_match, n_classes_match
 from ocl_tpu_torch.models.layers import torch_init_
@@ -99,3 +109,63 @@ def forward_teacher(teacher, x, w=None):
     where `w`); the teacher's running statistics stay as they are and no
     gradient flows."""
     return teacher(x, train=True, w=w, fold=False)
+
+
+@dataclass
+class Stacked:
+    """P models of one architecture: `params` and `buffers` map each name of
+    `base` to a [P, ...] tensor (the parameters leaves that take gradients
+    where the models' did). `base` is a model of the architecture whose own
+    tensors stand in for none of the points."""
+
+    base: torch.nn.Module
+    params: dict
+    buffers: dict
+
+    @property
+    def points(self) -> int:
+        return next(iter(self.params.values())).shape[0]
+
+    def tensors(self):
+        """(params, buffers): the pytree that vmap maps over."""
+        return self.params, self.buffers
+
+    def point(self, p: int) -> torch.nn.Module:
+        """Point p as a model of its own (a copy)."""
+        model = copy.deepcopy(self.base)
+        with torch.no_grad():
+            for name, t in model.named_parameters():
+                t.copy_(self.params[name][p])
+            for name, t in model.named_buffers():
+                t.copy_(self.buffers[name][p])
+        return model
+
+    @torch.no_grad()
+    def copy_(self, other: "Stacked") -> None:
+        """Every point's tensors from `other`'s, in place (a teacher's
+        snapshot of the live models)."""
+        torch._foreach_copy_(list(self.params.values()) + list(self.buffers.values()),
+                             list(other.params.values()) + list(other.buffers.values()))
+
+
+def stack_models(models, requires_grad: bool | None = None) -> Stacked:
+    """`Stacked` of `models`, copied (torch.func.stack_module_state).
+    Parameters take gradients as the first model's did, unless
+    `requires_grad` says."""
+    params, buffers = torch.func.stack_module_state(list(models))
+    grad = next(models[0].parameters()).requires_grad if requires_grad is None else requires_grad
+    for t in params.values():
+        t.requires_grad_(grad)
+    return Stacked(copy.deepcopy(models[0]), params, buffers)
+
+
+@contextlib.contextmanager
+def bind(base: torch.nn.Module, tensors):
+    """Within the block, `base` computes with `tensors` ((params, buffers)
+    of one point under vmap) in place of its own: its forward, `features`
+    and `named_parameters` see them, and a train-mode BN fold writes into
+    the buffers given (torch.func.functional_call's mechanism)."""
+    params, buffers = tensors
+    with _reparametrize_module(base, {**params, **buffers}):
+        yield base
+

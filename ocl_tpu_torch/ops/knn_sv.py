@@ -41,7 +41,7 @@ def knn_sv(eval_feats, eval_y, eval_mask, cand_feats, cand_y, cand_mask, k: int)
     factor = numer / denom
 
     rc = reverse_cumsum(diff * factor)
-    sv = torch.zeros((n_eval, n_cand), device=dev).scatter_(1, sorted_ind, rc)
+    sv = torch.zeros((n_eval, n_cand), device=dev).scatter(1, sorted_ind, rc)
     return torch.where(eval_mask[:, None], sv, 0.0)
 
 

@@ -16,7 +16,9 @@ calls and divides by their count:
 
 The launch floor is device_ms of `t.zero_()` on a one-element tensor, the
 least a launch costs the card inside a graph. `kernel_times` reads kernel
-device times by name from a `torch.profiler` trace, as a cross-check.
+device times by name from a `torch.profiler` trace, as a cross-check, and
+`busy_ms` the time in which at least one kernel ran: kernels on several
+streams overlap, so their sum can exceed the wall time.
 
 Every function here needs a CUDA device; nothing falls back to the CPU.
 """
@@ -120,6 +122,22 @@ def kernel_times(prof):
     finished `torch.profiler.profile`."""
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def busy_ms(prof):
+    """Milliseconds of a finished `torch.profiler.profile` in which at least
+    one CUDA kernel ran (the union of their intervals)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    total, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total / 1e3
 
 
 def profiled_ms(fn, name, calls=100):

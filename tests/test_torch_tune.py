@@ -117,12 +117,6 @@ def test_tune_csv_matches_ocl_tpu(fake_agents):
     pd.testing.assert_frame_equal(ours, theirs)
 
 
-def test_parallel_runs_is_not_ported():
-    with pytest.raises(NotImplementedError, match="parallel_runs"):
-        tune.multiple_run_tune_separate(default_params(**BASE, device="cpu", parallel_runs=True),
-                                        GRID, "x.pkl")
-
-
 def test_main_tune_runs_a_tiny_port_tune(tmp_path, monkeypatch, capsys):
     """config/general_1.yml cut to one run, one tuning task and one run a
     grid point, on three tasks of 20 images a class at nf 4."""
