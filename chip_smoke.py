@@ -37,16 +37,18 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                (gss_mem_strength 10, gss_batch_size 10; how many full-buffer
                steps replaced a slot, which must be > 0), AGEM, EWC++, LwF, and
                ER with separated_softmax, kd_trick, review_trick and ncm_trick
-               (two tasks each). Every accuracy must be finite and the latest
+               (two tasks each; fused ER, MIR, AGEM and the tricks at 250
+               images a class, 50 steps a task: the script's time). Every accuracy must be finite and the latest
                task's above 0.5; each line gives images/s, then launches and
                device ms a step over more steps (20 fused, 5 in the others) under
                torch.profiler, and the phase's pairwise_sqdist launches.
   13-15.     — iCaRL (config/agent/icarl/icarl_1k.yml), GDumb
                (config/agent/gdumb/gdumb_1k.yml with config/general_1_gdumb.yml:
-               batch 16, clip 10; mem_epoch cut 30 -> 10) and SCR
+               batch 16, clip 10; mem_epoch cut 30 -> 3) and SCR
                (config_CVPR/agent/scr/scr_1k.yml: eps_mem_batch 100, temp 0.1,
                review_trick, fused views) on the same stream at nf 20, two
-               tasks each, with the same figures and checks. GDumb also
+               tasks each (iCaRL and SCR at 250 images a class), with the
+               same figures and checks. GDumb also
                prints its retrain steps/s and launches and device ms a
                retrain step; SCR its augmentation's launches a call and the
                review epoch's seconds;
@@ -72,7 +74,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
   18. resume — config/general_1.yml + synthetic_nc.yml +
                config_CVPR/agent/aser/aser_1k_cifar100.yml (ER + ASER)
                through the YAML CLI (ocl_tpu_torch.main_config), cut to 1
-               run, 3 tasks, 200 images a class: uninterrupted; with
+               run, 3 tasks, 200 images a class, with cuDNN's and torch's
+               deterministic algorithms: uninterrupted; with
                --ckpt_dir and a crash inside train_learner in task 2; then
                resumed. Every tensor, the generator's and the host's state
                restored from the checkpoint must equal what was saved, bit
@@ -98,7 +101,7 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                accuracies are printed, not gated).
   21. stacked — --parallel_runs (experiment/parallel_run.py and
                parallel_tune.py) at nf 20: (a) fused ER from er_1k's flags,
-               3 runs of 2 tasks x 100 steps through general_main, stacked
+               3 runs of 2 tasks x 50 steps through general_main, stacked
                and sequential: aggregate images/s of both, every run's
                Avg_End_Acc above 0.5, the largest per-run gap; launches,
                device ms (kernels summed and with a kernel running) and
@@ -118,11 +121,32 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                of GDumb (gdumb_tune.yml, mem_epoch 30 -> 3), iCaRL
                (icarl_tune.yml) and EWC++ (ewc_tune.yml, lambda_ {100}),
                each ending with a best point from its grid; (e) ER + MIR,
-               GSS, match and mem_match, 3 runs stacked, each run's latest
-               task above 0.5.
-Then one JSON line of kernel figures (K1's with its batched figures), the
-script's total seconds, and last the result line
-{"ok": true, "device": {...}}.
+               GSS, match and mem_match, 3 runs stacked under deterministic
+               algorithms, each run's latest task above 0.5.
+  22. data   — the dataset loaders at nf 20 on trees written here in each
+               dataset's own format from --seed's default (class templates
+               plus noise): (a) CIFAR-100 (50 train images a class of 500,
+               the published 100 test images a class) through the YAML CLI
+               with config_CVPR's general.yml, cifar100_nc.yml and
+               aser_1k_cifar100.yml (ER + ASER), all 10 tasks: K1's
+               launches and each (n, m, d) it ran at, images/s, each task's
+               accuracy on its own test set after training it (every one
+               above 0.5); (b) Mini-ImageNet's three cache pickles at full
+               size with aser_1k_mini.yml, task 0 of 10; (c) CORe50 ni
+               (paths, LUP and labels pickles, 4,000 JPEGs at 128 px
+               decoded once into the bin cache, then read from it) with
+               config/general_1.yml and er_1k.yml, task 0 of 8. (b) and (c)
+               print images/s, launches, device ms and busy share a step
+               over DATA_PROFILE_STEPS profiled steps, the test sets' size
+               resident on the card, peak device memory, and must read
+               above 0.5 on the task trained; then the full CORe50 test set
+               (44,972 images) made resident as the runner keeps it, its
+               GiB. Last the kernel against its plain version at every
+               shape (a) and (b) launched it with (d = 160 and 640); phase
+               3 checks d = 640 and 2,560 among its shapes.
+Then one JSON line of kernel figures (K1's with its batched figures and the
+data runs' launches and shapes), the script's total seconds, and last the
+result line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -141,9 +165,13 @@ import time
 
 # the ASER shapes: update 30 x 30, retrieval 10 x 20 (adversarial) and
 # 20 x 20 (cooperative) on the synthetic stream; 210 x 210, 10 x 200 and
-# 200 x 200 on the CIFAR-100 recipe; D = 160 at nf 20
+# 200 x 200 on the CIFAR-100 recipe; D = 160 at nf 20 and 32 px. At 84 px
+# (Mini-ImageNet, aser_1k_mini: n_smp_cls 3) D is 640 and the shapes 310 x
+# 310, 10 x 300 and 300 x 300; at 128 px (CORe50's 50 classes at n_smp_cls
+# 2) D is 2,560 and the update 110 x 110
 SLICE_SHAPES = [(30, 30, 160), (10, 20, 160), (20, 20, 160),
-                (210, 210, 160), (10, 200, 160), (200, 200, 160)]
+                (210, 210, 160), (10, 200, 160), (200, 200, 160),
+                (310, 310, 640), (10, 300, 640), (300, 300, 640), (110, 110, 2560)]
 # ragged D (d % 4 != 0), tiny, over 48 KB of shared memory, slabs of D
 # through the ring (one of them ragged), and many waves
 CHECK_SHAPES = SLICE_SHAPES + [(13, 37, 50), (7, 5, 3), (1, 1, 1), (7, 5, 2048),
@@ -163,12 +191,17 @@ PROFILE_STEPS = 20
 # PROFILE_STEPS.
 ER_FLAGS = MAIN_FLAGS + ["--update", "random", "--retrieve", "random"]
 FAMILY_PROFILE_STEPS = 5
+# the script's time: fused ER, MIR, AGEM, the tricks, iCaRL and SCR stream
+# 250 images a class (50 steps a task) of the 500; GSS keeps 500 (its check
+# needs the buffer full in task 1), EWC++ and LwF at lr 0.01 too
+HALF = ["--synthetic_size", "250"]
 FAMILY = [
-    ("fused", "ER, fused schedule (default flags)", [], 1, PROFILE_STEPS),
-    ("mir", "ER + MIR", ["--retrieve", "MIR", "--subsample", "50"], 2, FAMILY_PROFILE_STEPS),
+    ("fused", "ER, fused schedule (default flags)", HALF, 1, PROFILE_STEPS),
+    ("mir", "ER + MIR", ["--retrieve", "MIR", "--subsample", "50"] + HALF, 2,
+     FAMILY_PROFILE_STEPS),
     ("gss", "ER + GSS", ["--update", "GSS", "--gss_mem_strength", "10",
                          "--gss_batch_size", "10"], 2, FAMILY_PROFILE_STEPS),
-    ("agem", "AGEM", ["--agent", "AGEM"], 2, FAMILY_PROFILE_STEPS),
+    ("agem", "AGEM", ["--agent", "AGEM"] + HALF, 2, FAMILY_PROFILE_STEPS),
     # lambda 100 at lr 0.01, a point of config/agent/ewc/ewc_tune.yml: at lr
     # 0.1 the penalty's step (2 lr lambda F) overshoots and both packages
     # diverge to NaN on this stream from the second task on
@@ -180,17 +213,17 @@ FAMILY = [
      FAMILY_PROFILE_STEPS),
     ("tricks", "ER + separated_softmax, kd_trick, review_trick, ncm_trick",
      ["--separated_softmax", "True", "--kd_trick", "True", "--review_trick", "True",
-      "--ncm_trick", "True"], 2, FAMILY_PROFILE_STEPS),
+      "--ncm_trick", "True"] + HALF, 2, FAMILY_PROFILE_STEPS),
 ]
 # phases 13 and 15 (as FAMILY's entries), from the agents' recipes
-ICARL = ("icarl", "iCaRL (icarl_1k)", ["--agent", "ICARL", "--eps_mem_batch", "10"], 2,
+ICARL = ("icarl", "iCaRL (icarl_1k)", ["--agent", "ICARL", "--eps_mem_batch", "10"] + HALF, 2,
          FAMILY_PROFILE_STEPS)
 SCR = ("scr", "SCR (scr_1k: eps_mem_batch 100, temp 0.1, review_trick, fused views)",
        ["--agent", "SCR", "--eps_mem_batch", "100", "--temp", "0.1", "--weight_decay", "0",
-        "--review_trick", "True"], 2, FAMILY_PROFILE_STEPS)
+        "--review_trick", "True"] + HALF, 2, FAMILY_PROFILE_STEPS)
 # phase 14: gdumb_1k with general_1_gdumb's batch
-# (mem_epoch cut 30 -> 10, 620 retrain steps a task: the script's time)
-GDUMB_FLAGS = ["--agent", "GDUMB", "--batch", "16", "--mem_epoch", "10", "--clip", "10.0",
+# (mem_epoch cut 30 -> 3, 186 retrain steps a task: the script's time)
+GDUMB_FLAGS = ["--agent", "GDUMB", "--batch", "16", "--mem_epoch", "3", "--clip", "10.0",
                "--minlr", "0.0005"]
 GDUMB_PROFILE_STEPS = 10
 # phase 17: CN-DPM, config/agent/cndpm/cndpm.yml with config/general_1.yml
@@ -212,7 +245,7 @@ ER_RECIPE = "config/agent/er/er_1k.yml"
 OFFLINE_RECIPE = "config/agent/er/offline.yml"
 RESUME_GAP = 0.02
 # phase 21: stacked runs and the stacked tuner. (a) fused ER from er_1k's
-# flags, 3 runs of 2 tasks x 100 steps, stacked and sequential; (b) ER +
+# flags, 3 runs of 2 tasks x 50 steps, stacked and sequential; (b) ER +
 # ASER stacked, R = 3; the batched kernel at P points
 STACKED_RUNS = 3
 STACKED_FLAGS = ["--device", "cuda", "--data", "synthetic", "--agent", "ER",
@@ -238,6 +271,23 @@ STACKED_STRATEGIES = [
 BATCHED_POINTS = (1, 3, 84)
 BATCHED_SHAPES = [(30, 30, 160), (10, 20, 160), (20, 20, 160), (210, 210, 160)]
 ER_TUNE = "config/agent/er/er_tune.yml"
+# phase 22: the dataset loaders on trees written in each dataset's own format
+# from --seed's default (class templates plus noise, as the synthetic stream
+# makes them, so that a run learns). (a) CIFAR-100 through the YAML CLI, all
+# 10 tasks of config_CVPR's ER + ASER recipe; (b) Mini-ImageNet at full size
+# (the loader reshapes each cache pickle to [n_cls, 600, 84, 84, 3]), one
+# task of 10; (c) CORe50 ni at 128 px, JPEGs decoded once into the bin
+# cache, one task of 8 read from it
+CVPR_GENERAL = "config_CVPR/general.yml"
+CIFAR100_DATA = "config_CVPR/data/cifar100/cifar100_nc.yml"
+MINI_DATA = "config_CVPR/data/mini_imagenet/mini_imagenet_nc.yml"
+MINI_RECIPE = "config_CVPR/agent/aser/aser_1k_mini.yml"
+CORE50_DATA = "config/data/core50/core50_ni.yml"
+CIFAR100_TRAIN_PER_CLASS = 50       # of 500: the cut
+CIFAR100_TEST_PER_CLASS = 100       # as published
+CORE50_TRAIN, CORE50_TEST, CORE50_CLASSES = 3000, 1000, 50   # of ~15,000 and 44,972
+CORE50_FULL_TEST = 44972
+DATA_PROFILE_STEPS = 20
 
 
 class CheckFailed(RuntimeError):
@@ -562,7 +612,7 @@ def run_gdumb_phase(torch, device, pairwise_sqdist):
     per_step = {"kernels": len(kernels) / GDUMB_PROFILE_STEPS,
                 "device_ms": sum(us for _, us in kernels) / 1e3 / GDUMB_PROFILE_STEPS,
                 "wall_ms": wall * 1e3 / GDUMB_PROFILE_STEPS}
-    print("[gdumb] GDumb (gdumb_1k, batch 16, mem_epoch 30 -> 10, clip 10) nf {}, {} tasks: "
+    print("[gdumb] GDumb (gdumb_1k, batch 16, mem_epoch 30 -> 3, clip 10) nf {}, {} tasks: "
           "accuracy after each task on tasks 0-{} {}, Avg_End_Acc over them {:.4f}, latest task "
           "{:.4f}, "
           "{:.1f} images/s; retrain {} steps in {:.1f} s, {:.1f} steps/s ({} in the last task); "
@@ -810,6 +860,37 @@ def quietly(fn, *args, **kwargs):
         raise
 
 
+@contextlib.contextmanager
+def deterministic(torch):
+    """Within the block, cuDNN and torch choose deterministic algorithms, so
+    that two runs from one state compute the same sums, and a call repeats
+    the last. Phase 18 compares a resumed run with an uninterrupted one, and
+    ER + ASER's picks hang on rounding: with the default algorithms, task 1
+    read 0.94 after task 2 in one run and 0.6667 in the other, from a
+    bit-for-bit restore. Phase 21 (e) gates small stacked runs whose
+    trajectories parted from call to call (ER + match at 25 steps a task;
+    one ER + GSS run read 0.0 on its latest task in one call, 1.0 in
+    others). PERF.md §6. Yields the set of the warnings of ops that have no
+    deterministic algorithm (they run as before)."""
+    import warnings
+
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    seen = set()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield seen
+            seen.update(str(w.message).split(".")[0] for w in caught
+                        if "deterministic" in str(w.message))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
 def run_resume_phase(torch, pairwise_sqdist, card):
     """Phase 18: ER + ASER from its recipes through the YAML CLI,
     uninterrupted; with --ckpt_dir, crashing in task 2; resumed."""
@@ -850,7 +931,7 @@ def run_resume_phase(torch, pairwise_sqdist, card):
         pairwise_sqdist.launches = 0     # from here on: the launches after the restore
         return state, meta
 
-    with experiment_dir():
+    with experiment_dir(), deterministic(torch) as nondeterministic:
         cuts = {"num_runs: 5": "num_runs: 1"}
         general = cut_recipe(GENERAL, "general.yml", cuts)
         general_ckpt = cut_recipe(GENERAL, "general_ckpt.yml", cuts, [("ckpt_dir", "ckpt")])
@@ -894,6 +975,8 @@ def run_resume_phase(torch, pairwise_sqdist, card):
             checkpoint.load_checkpoint = load_checkpoint
     want, got = matrices
     gap = float(np.max(np.abs(got - want)))
+    print("[resume] deterministic algorithms (cuDNN and torch); ops without one: {}".format(
+        sorted(nondeterministic) or "none"))
     print("[resume] uninterrupted {:.1f} s, interrupted in task 2 {:.1f} s, resumed {:.1f} s ({}); "
           "checkpoint after task {}; restored {} tensors, generator {}, host state {}: {}".format(
               *times, card, saved_meta["task"], verified["tensors"],
@@ -1205,11 +1288,12 @@ def run_stacked_phase(torch, distance, card, floor_ms):
     pairwise_sqdist = distance.pairwise_sqdist
     out = {}
     # (a) stacked against sequential runs through the CLI
-    images_a_run = 2 * 100 * 10
+    images_a_run = 2 * 50 * 10
     runs = {}
     with experiment_dir():
         for mode in ("stacked", "sequential"):
-            flags = STACKED_FLAGS + ["--store", "True", "--save-path", mode + ".pkl"]
+            flags = STACKED_FLAGS + ["--synthetic_size", "100", "--store", "True", "--save-path",
+                                     mode + ".pkl"]
             if mode == "stacked":
                 flags += ["--parallel_runs", "True"]
             t0 = time.time()
@@ -1225,7 +1309,7 @@ def run_stacked_phase(torch, distance, card, floor_ms):
             runs[mode] = {"seconds": secs, "images_per_s": ips,
                           "end_acc": acc[:, -1].mean(axis=1).tolist()}
     gap = max(abs(a - b) for a, b in zip(runs["stacked"]["end_acc"], runs["sequential"]["end_acc"]))
-    print("[stacked] (a) fused ER, {} runs x 2 tasks x 100 steps, nf 20 ({}): stacked {:.1f} "
+    print("[stacked] (a) fused ER, {} runs x 2 tasks x 50 steps, nf 20 ({}): stacked {:.1f} "
           "images/s aggregate ({:.1f} s), sequential {:.1f} images/s ({:.1f} s), stacked / "
           "sequential {:.2f}x; Avg_End_Acc a run stacked {} sequential {}, largest gap "
           "{:.4f}".format(
@@ -1404,11 +1488,23 @@ def run_stacked_phase(torch, distance, card, floor_ms):
             small[tag] = {"points": n, "seconds": secs, "best": best}
     out["small"] = small
 
-    # (e) the other strategies stacked, through the CLI: each run's accuracy
-    # on its latest task (match retrieves the incoming batch's classes only,
-    # so the earlier task is forgotten by design)
-    out["strategies"] = {}
-    with experiment_dir():
+    # (e) the other strategies stacked, through the CLI
+    out["strategies"] = run_stacked_strategies(torch)
+    return out
+
+
+def run_stacked_strategies(torch):
+    """Phase 21 (e): ER + each strategy of STACKED_STRATEGIES, 3 runs stacked
+    through the CLI; each run's accuracy on its latest task (match
+    retrieves the incoming batch's classes only, so the earlier task is
+    forgotten by design). Returns them by strategy."""
+    import numpy as np
+
+    from ocl_tpu_torch.config import build_parser
+    from ocl_tpu_torch.general_main import main as cli_main
+
+    out = {}
+    with experiment_dir(), deterministic(torch) as nondeterministic:
         for tag, flags in STACKED_STRATEGIES:
             t0 = time.time()
             res, _ = quietly(cli_main, build_parser().parse_args(
@@ -1422,7 +1518,289 @@ def run_stacked_phase(torch, distance, card, floor_ms):
                       time.time() - t0))
             require(np.isfinite(latest).all() and (latest > 0.5).all(),
                     "stacked ER + {}: latest-task accuracies {} not above 0.5".format(tag, latest))
-            out["strategies"][tag] = latest.tolist()
+            out[tag] = latest.tolist()
+    print("[stacked] (e) deterministic algorithms (cuDNN and torch); ops without one: {}".format(
+        sorted(nondeterministic) or "none"))
+    return out
+
+
+@contextlib.contextmanager
+def k1_shapes(distance):
+    """Within the block, a count of each (n, m, d, points) that the kernel
+    is launched with (its wrapper's launch count is left as it is)."""
+    import collections
+
+    seen = collections.Counter()
+    launch = distance._launch
+
+    def recorded(a, b, out, n, m, d, points):
+        seen[(n, m, d, points)] += 1
+        return launch(a, b, out, n, m, d, points)
+
+    distance._launch = recorded
+    try:
+        yield seen
+    finally:
+        distance._launch = launch
+
+
+def class_images(g, templates, labels, noise, pool=600):
+    """uint8 images: the label's template (floats in [0, 1]) plus Gaussian
+    noise of `noise` x 255 grey levels, clipped. The noise is drawn for
+    `pool` images once and shared round-robin (a 1.27 GB tree in seconds)."""
+    import numpy as np
+
+    base = np.round(templates * 255).astype(np.int16)
+    pool = min(pool, len(labels))
+    draws = np.round(g.normal(0, noise * 255, (pool,) + templates.shape[1:])).astype(np.int16)
+    out = np.empty((len(labels),) + templates.shape[1:], np.uint8)
+    for i in range(0, len(labels), pool):
+        k = min(pool, len(labels) - i)
+        out[i: i + k] = np.clip(base[labels[i: i + k]] + draws[:k], 0, 255)
+    return out
+
+
+def write_cifar100(root, seed):
+    """cifar-100-python/{train,test} pickles: rows of 3,072 channel-major
+    bytes and fine_labels."""
+    import numpy as np
+
+    g = np.random.RandomState(seed)
+    templates = g.rand(100, 32, 32, 3).astype(np.float32)
+    folder = os.path.join(root, "datasets", "cifar100", "cifar-100-python")
+    os.makedirs(folder)
+    for name, n in (("train", CIFAR100_TRAIN_PER_CLASS), ("test", CIFAR100_TEST_PER_CLASS)):
+        y = np.repeat(np.arange(100), n)
+        x = class_images(g, templates, y, 0.15)
+        with open(os.path.join(folder, name), "wb") as f:
+            pickle.dump({b"data": x.transpose(0, 3, 1, 2).reshape(len(y), 3072),
+                         b"fine_labels": y.tolist()}, f, protocol=4)
+
+
+def write_mini_imagenet(root, seed):
+    """The three kaggle cache pickles, 64 / 16 / 20 classes of 600 images
+    at 84 px: {"image_data": uint8 [n_cls * 600, 84, 84, 3]}, 1.27 GB."""
+    import numpy as np
+
+    g = np.random.RandomState(seed)
+    templates = g.rand(100, 84, 84, 3).astype(np.float32)
+    folder = os.path.join(root, "datasets", "mini_imagenet")
+    os.makedirs(folder)
+    first = 0
+    for split, n_cls in (("train", 64), ("val", 16), ("test", 20)):
+        y = np.repeat(np.arange(first, first + n_cls), 600)
+        first += n_cls
+        with open(os.path.join(folder, "mini-imagenet-cache-{}.pkl".format(split)), "wb") as f:
+            pickle.dump({"image_data": class_images(g, templates, y, 0.15)}, f, protocol=4)
+
+
+def write_core50(root, seed):
+    """paths.pkl, LUP.pkl and labels.pkl of the ni protocol, one run: task 0
+    names CORE50_TRAIN JPEGs of the 50 classes, tasks 1-7 none (the cut),
+    the test set CORE50_TEST; the JPEGs at 128 px, written by PIL."""
+    import numpy as np
+    from PIL import Image
+
+    g = np.random.RandomState(seed)
+    templates = g.rand(CORE50_CLASSES, 128, 128, 3).astype(np.float32)
+    folder = os.path.join(root, "datasets", "core50")
+    n = CORE50_TRAIN + CORE50_TEST
+    y = g.permutation(np.arange(n) % CORE50_CLASSES)
+    x = class_images(g, templates, y, 0.15)
+    paths = []
+    for i in range(n):
+        rel = os.path.join("imgs", "s{}".format(y[i]), "i{}.jpg".format(i))
+        os.makedirs(os.path.join(folder, os.path.dirname(rel)), exist_ok=True)
+        Image.fromarray(x[i]).save(os.path.join(folder, rel), quality=90)
+        paths.append(rel)
+    train, test = list(range(CORE50_TRAIN)), list(range(CORE50_TRAIN, n))
+    lup = {"ni": [[train] + [[] for _ in range(7)] + [test]]}
+    labels = {"ni": [[y[train].tolist()] + [[] for _ in range(7)] + [y[test].tolist()]]}
+    for name, obj in (("paths.pkl", paths), ("LUP.pkl", lup), ("labels.pkl", labels)):
+        with open(os.path.join(folder, name), "wb") as f:
+            pickle.dump(obj, f)
+
+
+def recipe_params(general, data, agent, **cuts):
+    """The recipe's merged parameters (as main_config merges them) on the
+    card, with `cuts` over them."""
+    from ocl_tpu_torch.config import load_yaml, merge_yaml_params
+
+    files = [load_yaml(os.path.join(REPO, f)) for f in (general, data, agent)]
+    return merge_yaml_params(*files, verbose=False, device="cuda", **cuts)
+
+
+def run_data_task(torch, distance, params, tag):
+    """One task of `params`' stream through the port's agent at nf 20: the
+    task trained (host clock, synced), evaluated on every task's test set
+    (all resident on the card), then DATA_PROFILE_STEPS more steps of it
+    under torch.profiler. Returns the figures."""
+    import random
+
+    import numpy as np
+
+    from ocl_tpu_torch.data import continuum, prepare_test_loaders
+    from ocl_tpu_torch.registry import agents
+
+    device = torch.device(params.device)
+    np.random.seed(params.seed)
+    random.seed(params.seed)
+    t0 = time.time()
+    stream = continuum(params.data, params.cl_type, params)
+    stream.new_run()
+    x, y, labels = next(stream)
+    load_s = time.time() - t0
+    agent = agents[params.agent](params)
+    state = agent.init_state(params.seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loaders = prepare_test_loaders(stream.test_data(), params, device)
+    resident = sum(t.numel() * t.element_size() for loader in loaders for t in loader)
+    n_test = sum(int(loader[2].sum()) for loader in loaders)
+    distance.pairwise_sqdist.launches = 0
+    with k1_shapes(distance) as shapes:
+        t0 = time.time()
+        state = agent.train_learner(state, x, y)
+        torch.cuda.synchronize()
+        train_s = time.time() - t0
+    launches = distance.pairwise_sqdist.launches
+    acc = agent.evaluate(state, loaders)
+    images = (len(y) // params.batch) * params.batch
+    per_step = profile_steps(torch, agent, state, agent.before_train(y), x, y, DATA_PROFILE_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = params.batch / (images / train_s) * 1e3
+    fig = {"images": images, "classes": len(labels), "images_per_s": images / train_s,
+           "load_s": load_s, "acc": float(acc[0]), "acc_all": [float(a) for a in acc],
+           "launches": launches, "shapes": sorted(shapes.items()), "test_images": n_test,
+           "test_resident_gib": resident / 2 ** 30, "peak_gib": peak / 2 ** 30,
+           "step_ms": step_ms, "busy": per_step["device_ms"] / step_ms, **per_step}
+    print("[data] {} nf {}, task 0 ({} images, {} classes, {} steps; stream set up in {:.1f} "
+          "s): accuracy on it {:.4f}, {:.1f} images/s; test sets {} images resident on the card, "
+          "{:.3f} GiB; pairwise_sqdist launches {}, shapes (n, m, d, points): launches {}; {} "
+          "profiled steps: {:.0f} launches, {:.3f} ms device, {:.1f} ms host clock a step, busy "
+          "{:.1%} of the unprofiled {:.1f} ms step; peak device memory {:.3f} GiB".format(
+              tag, params.nf, len(y), len(labels), images // params.batch, load_s, fig["acc"],
+              fig["images_per_s"], n_test, fig["test_resident_gib"], launches,
+              fig["shapes"], DATA_PROFILE_STEPS, per_step["kernels"], per_step["device_ms"],
+              per_step["wall_ms"], fig["busy"], step_ms, fig["peak_gib"]))
+    require(np.isfinite(acc).all(), "data: {} has a non-finite accuracy".format(tag))
+    require(fig["acc"] > 0.5, "data: {} task 0 accuracy {} is not above 0.5".format(
+        tag, fig["acc"]))
+    return fig
+
+
+def run_data_phase(torch, distance, card):
+    """Phase 22: (a) CIFAR-100 through main_config, (b) Mini-ImageNet and
+    (c) CORe50 one task each, on trees written here; then the full CORe50
+    test set's residency on the card."""
+    import numpy as np
+
+    import ocl_tpu_torch.experiment.run as run_mod
+    from ocl_tpu_torch.config import build_parser as cli_parser
+    from ocl_tpu_torch.data import continuum, prepare_test_loaders
+    from ocl_tpu_torch.main_config import build_parser, main as config_main
+
+    seed = cli_parser().get_default("seed")
+    pairwise_sqdist = distance.pairwise_sqdist
+    out = {}
+    with experiment_dir() as tmp:
+        # (a) CIFAR-100, all 10 tasks through the YAML CLI
+        t0 = time.time()
+        write_cifar100(tmp, seed)
+        write_s = time.time() - t0
+        general = cut_recipe(CVPR_GENERAL, "general.yml", {"num_runs: 10": "num_runs: 1"})
+        matrices = []
+        compute_performance = run_mod.compute_performance
+
+        def recorded(acc):
+            matrices.append(np.array(acc))
+            return compute_performance(acc)
+
+        run_mod.compute_performance = recorded
+        pairwise_sqdist.launches = 0
+        try:
+            with k1_shapes(distance) as shapes:
+                t0 = time.time()
+                _, log = quietly(config_main, build_parser().parse_args([
+                    "--general", general, "--data", os.path.join(REPO, CIFAR100_DATA),
+                    "--agent", os.path.join(REPO, ASER_RECIPE), "--verbose", "False"]))
+                run_s = time.time() - t0
+        finally:
+            run_mod.compute_performance = compute_performance
+        launches = pairwise_sqdist.launches
+        acc = matrices[0][0]
+        own = np.diag(acc)
+        tput = [line for line in log.splitlines() if "stream throughput" in line][0]
+        ips = float(tput.split("throughput")[1].split()[0])
+        out["cifar100"] = {"acc": acc.tolist(), "own": own.tolist(), "launches": launches,
+                           "shapes": sorted(shapes.items()), "images_per_s": ips,
+                           "seconds": run_s, "write_s": write_s}
+        print("[data] (a) CIFAR-100: {} + {} + {} through main_config, nf 20, cut: num_runs 10 "
+              "-> 1, {} of 500 train images a class ({} steps a task), test set as published "
+              "({} a class; tree written in {:.1f} s): {:.1f} s ({}); {:.1f} images/s; each "
+              "task's accuracy on its own test set after training it {}; Avg_End_Acc {:.4f}; "
+              "pairwise_sqdist launches {}, shapes (n, m, d, points): launches {}".format(
+                  CVPR_GENERAL, CIFAR100_DATA, ASER_RECIPE, CIFAR100_TRAIN_PER_CLASS,
+                  CIFAR100_TRAIN_PER_CLASS, CIFAR100_TEST_PER_CLASS, write_s, run_s, card, ips,
+                  [round(float(a), 4) for a in own], float(acc[-1].mean()), launches,
+                  out["cifar100"]["shapes"]))
+        require(acc.shape == (10, 10) and np.isfinite(acc).all(),
+                "data: CIFAR-100 accuracy matrix {}".format(acc.shape))
+        require(launches > 0, "data: the CIFAR-100 ASER run launched no pairwise_sqdist kernel")
+        require(own.min() > 0.5, "data: a CIFAR-100 task read {} after training it".format(
+            own.min()))
+
+        # (b) Mini-ImageNet at full size, one task
+        t0 = time.time()
+        write_mini_imagenet(tmp, seed)
+        write_s = time.time() - t0
+        params = recipe_params(CVPR_GENERAL, MINI_DATA, MINI_RECIPE, num_runs=1)
+        print("[data] (b) Mini-ImageNet: {} + {} + {}, cut: num_runs 10 -> 1, task 0 of 10; "
+              "the cache pickles at full size (60,000 images, written in {:.1f} s)".format(
+                  CVPR_GENERAL, MINI_DATA, MINI_RECIPE, write_s))
+        out["mini_imagenet"] = run_data_task(torch, distance, params, "(b) Mini-ImageNet")
+        require(out["mini_imagenet"]["launches"] > 0,
+                "data: the Mini-ImageNet ASER run launched no pairwise_sqdist kernel")
+        require(all(s[0][2] == 640 for s in out["mini_imagenet"]["shapes"]),
+                "data: Mini-ImageNet's kernel shapes are not at d 640")
+        shutil.rmtree(os.path.join(tmp, "datasets", "mini_imagenet"))
+
+        # (c) CORe50 ni: decode once into the bin cache, then train from it
+        t0 = time.time()
+        write_core50(tmp, seed)
+        write_s = time.time() - t0
+        params = recipe_params(GENERAL, CORE50_DATA, ER_RECIPE, num_runs=1)
+        t0 = time.time()
+        first = continuum(params.data, params.cl_type, params)
+        first.new_run()
+        next(first)
+        decode_s = time.time() - t0
+        print("[data] (c) CORe50: {} + {} + {}, cut: num_runs 5 -> 1, task 0 of 8 ({} train "
+              "images, 60 a class) and {} test images of 44,972; {} JPEGs written in {:.1f} s, "
+              "decoded into the bin cache in {:.1f} s ({:.0f} images/s)".format(
+                  GENERAL, CORE50_DATA, ER_RECIPE, CORE50_TRAIN, CORE50_TEST,
+                  CORE50_TRAIN + CORE50_TEST, write_s, decode_s,
+                  (CORE50_TRAIN + CORE50_TEST) / decode_s))
+        out["core50"] = run_data_task(torch, distance, params, "(c) CORe50 ni")
+        out["core50"].update(decode_s=decode_s)
+        require(out["core50"]["launches"] == 0, "data: plain ER launched pairwise_sqdist")
+
+        # the full CORe50 test set, resident on the card as the runner keeps it
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.time()
+        big = prepare_test_loaders([(np.zeros((CORE50_FULL_TEST, 128, 128, 3), np.float32),
+                                     np.zeros(CORE50_FULL_TEST, np.int64))], params,
+                                   params.device)
+        torch.cuda.synchronize()
+        full_s = time.time() - t0
+        full_gib = (torch.cuda.memory_allocated() - before) / 2 ** 30
+        del big
+        torch.cuda.empty_cache()
+        out["core50"].update(full_test_gib=full_gib, full_test_s=full_s)
+        print("[data] (c) the full CORe50 test set ({} images at 128 px, test_batch {}) resident "
+              "on the card: {:.3f} GiB, prepared in {:.1f} s".format(
+                  CORE50_FULL_TEST, params.test_batch, full_gib, full_s))
     return out
 
 
@@ -1566,6 +1944,28 @@ def main():
     t0 = time.time()
     stacked = run_stacked_phase(torch, distance, card, floor["device_ms"])
     family["stacked"] = {"phase_s": time.time() - t0}
+
+    # 22. the dataset loaders: CIFAR-100, Mini-ImageNet, CORe50; the kernel
+    # at every shape their runs launched it with
+    t0 = time.time()
+    data = run_data_phase(torch, distance, card)
+    run_shapes = sorted({s[0][:3] for tag in ("cifar100", "mini_imagenet")
+                         for s in data[tag]["shapes"]})
+    g = torch.Generator(device=device).manual_seed(2)
+    for n, m, d in run_shapes:
+        scale = min(1.0, (160 / d) ** 0.5)
+        a = torch.randn(n, d, device=device, generator=g) * scale
+        b = torch.randn(m, d, device=device, generator=g) * scale
+        got = pairwise_sqdist(a, b)
+        torch.cuda.synchronize()
+        abs_err, rel_err = errors(torch, got, pairwise_sqdist_plain(a, b))
+        max_abs = max(max_abs, abs_err)
+        print("[data] kernel at the run's shape {}x{}x{}: max_abs_err {:.3e} max_rel_err "
+              "{:.3e}".format(n, m, d, abs_err, rel_err))
+        require(math.isfinite(abs_err) and rel_err <= MAX_REL and abs_err <= MAX_ABS,
+                "kernel disagrees with plain at the run's shape {}x{}x{}".format(n, m, d))
+    family["data"] = {"phase_s": time.time() - t0}
+    print("[data] phase 22: {:.1f} s ({})".format(family["data"]["phase_s"], card))
     print("[family] seconds a phase ({}): {}".format(card, ", ".join(
         "{} {:.1f}".format(tag, f["phase_s"]) for tag, f in family.items() if "phase_s" in f)))
 
@@ -1588,7 +1988,10 @@ def main():
         "batched": {"points": list(BATCHED_POINTS), "max_abs_err": stacked["aser"]["max_abs_err"],
                     "stacked_aser_launches": stacked["aser"]["launches"],
                     "launches_a_stacked_sv_step": stacked["aser"]["per_sv_step"]["k1_launches"],
-                    "runs": STACKED_RUNS, "shapes": stacked["aser"]["kernel_rows"]}}]}))
+                    "runs": STACKED_RUNS, "shapes": stacked["aser"]["kernel_rows"]},
+        "data_runs": {tag: {"launches": data[tag]["launches"],
+                            "shapes": [[list(k), c] for k, c in data[tag]["shapes"]]}
+                      for tag in ("cifar100", "mini_imagenet")}}]}))
     print("[total] chip_smoke.py {:.1f} s ({})".format(time.time() - script_t0, card))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -177,7 +177,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "has fp32 only so far")
     parser.add_argument("--core50_cache", dest="core50_cache", default=True,
                         type=boolean_string,
-                        help="decoded-image cache for CORe50 (not ported yet)")
+                        help="CORe50: read and write decoded images in "
+                             "datasets/core50/bin_cache/ (ocl_tpu's file "
+                             "format)")
     parser.add_argument("--debug_nans", dest="debug_nans", default=False,
                         type=boolean_string,
                         help="raise FloatingPointError on any non-finite "

@@ -17,7 +17,7 @@ class continuum:
     def __init__(self, dataset, scenario, params):
         if dataset not in data_objects:
             raise ValueError(
-                "unknown or not yet ported dataset {!r}; available: {}".format(
+                "unknown dataset {!r}; available: {}".format(
                     dataset, ", ".join(sorted(data_objects))))
         self.data_object = data_objects[dataset](scenario, params)
         self.task_nums = self.data_object.task_nums

@@ -6,12 +6,14 @@ Images enter as uint8 HWC and leave as float32 in [0, 1] with the distortion
 applied, from the same draws as ocl_tpu: noise from the global `np.random`,
 the occluding square's corner from Python's global `random`. Blur is
 ocl_tpu's per-image separable Gaussian (its documented deviation from the
-reference, which also blurs across the batch axis). `--plot_sample`'s grids
-are not ported yet.
+reference, which also blurs across the batch axis). With `--plot_sample`,
+each task's first 10 training images are saved as a PNG grid under
+`result/plots/` (`plot_ns_samples`).
 """
 
 from __future__ import annotations
 
+import os
 import random
 
 import numpy as np
@@ -74,10 +76,25 @@ def make_ns(x_uint8, y, ns_type, factor):
     return x.astype(np.float32), y
 
 
+def plot_ns_samples(train_set, ns_type, ns_factor, plot_dir="result/plots"):
+    """Save a grid of the first 10 images of each task's train split
+    (reference test_ns / show_sample, non_stationary.py:127-132); returns
+    the PNGs' paths."""
+    from ocl_tpu_torch.utils.plot import save_sample_grid
+
+    paths = []
+    for i, (x, _y) in enumerate(train_set):
+        name = "ns_{}_task{}_factor{}.png".format(ns_type, i, ns_factor[i])
+        paths.append(save_sample_grid(x[:10], os.path.join(plot_dir, name)))
+    return paths
+
+
 def construct_ns_multiple_wrapper(train_data, train_label, test_data, test_label,
-                                  task_nums, img_size, val_size, ns_type, ns_factor):
+                                  task_nums, img_size, val_size, ns_type, ns_factor,
+                                  plot=False, plot_dir="result/plots"):
     """One (train, val, test) triple a task, task i distorted by
-    ns_factor[i] (reference :182-220)."""
+    ns_factor[i] (reference :182-220); with `plot`, the tasks' sample
+    grids (`plot_ns_samples`)."""
     from ocl_tpu_torch.data.task_compose import train_val_test_split_ni
 
     (tr_x, tr_y, va_x, va_y, te_x, te_y) = train_val_test_split_ni(
@@ -87,4 +104,6 @@ def construct_ns_multiple_wrapper(train_data, train_label, test_data, test_label
         train_set.append(make_ns(tr_x[i], tr_y[i], ns_type, factor))
         val_set.append(make_ns(va_x[i], va_y[i], ns_type, factor))
         test_set.append(make_ns(te_x[i], te_y[i], ns_type, factor))
+    if plot:
+        plot_ns_samples(train_set, ns_type, ns_factor, plot_dir)
     return train_set, val_set, test_set

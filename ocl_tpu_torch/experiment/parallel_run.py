@@ -195,14 +195,14 @@ def multiple_run_parallel(params, store=False, save_path=None):
         data_continuum.new_run()
         runs_tasks.append(list(data_continuum))
         runs_tests.append(prepare_test_loaders(data_continuum.test_data(), params, device))
-    n_tasks = len(runs_tasks[0])
-    tests = [_stack_loaders([runs_tests[r][t] for r in range(n_runs)]) for t in range(n_tasks)]
+    n_tasks, n_tests = len(runs_tasks[0]), len(runs_tests[0])
+    tests = [_stack_loaders([runs_tests[r][t] for r in range(n_runs)]) for t in range(n_tests)]
 
     agent = agents[params.agent](params)
     ss = _stack([agent.init_state(params.seed + r) for r in range(n_runs)])
 
     old_labels = [set() for _ in range(n_runs)]
-    acc = np.zeros((n_runs, n_tasks, n_tasks))
+    acc = np.zeros((n_runs, n_tasks, n_tests))
     tput = Throughput()
     for t in range(n_tasks):
         old_mask = torch.zeros(n_runs, agent.n_classes, dtype=torch.bool)
@@ -225,9 +225,12 @@ def multiple_run_parallel(params, store=False, save_path=None):
             ss = agent.before_task_stacked(ss)
             ss = agent.stacked_train_task(ss, ctx, xs, ys)
             ss = agent.after_train_stacked(ss, ctx)
-        acc[:, t, : t + 1] = agent.evaluate_stacked(ss, tests[: t + 1])
+        # the test sets of the tasks seen so far: one a task, but CORe50's
+        # ni protocol has a single test set for all its tasks
+        seen = tests[: t + 1]
+        acc[:, t, : len(seen)] = agent.evaluate_stacked(ss, seen)
         if params.verbose:
-            print("task {}: acc {}".format(t, acc[:, t, : t + 1].mean(axis=0)))
+            print("task {}: acc {}".format(t, acc[:, t, : len(seen)].mean(axis=0)))
 
     end = time.time()
     if store:

@@ -1,7 +1,7 @@
 """Name registries of the port (counterpart of ocl_tpu/registry.py).
 
-Entries resolve lazily, as in the JAX registry. Every agent of the
-reference is registered; the runner names any agent that is not.
+Entries resolve lazily, as in the JAX registry. Every dataset and every
+agent of ocl_tpu is registered.
 """
 
 from __future__ import annotations
@@ -18,6 +18,11 @@ def _lazy(path, name):
 
 
 data_objects = {
+    "cifar100": _lazy("ocl_tpu_torch.data.datasets", "CIFAR100"),
+    "cifar10": _lazy("ocl_tpu_torch.data.datasets", "CIFAR10"),
+    "core50": _lazy("ocl_tpu_torch.data.datasets", "CORE50"),
+    "mini_imagenet": _lazy("ocl_tpu_torch.data.datasets", "Mini_ImageNet"),
+    "openloris": _lazy("ocl_tpu_torch.data.datasets", "OpenLORIS"),
     "synthetic": _lazy("ocl_tpu_torch.data.datasets", "Synthetic"),
 }
 

@@ -70,10 +70,12 @@ def test_library_path_keys_on_source(monkeypatch, tmp_path):
     assert first.parent == _build.BUILD_DIR
 
 
-# the ASER shapes (synthetic stream, then CIFAR-100), chip_smoke.py's check
-# shapes, and the edges: D = 1, 640, 2048, slabs over D and N = M = 1
+# the ASER shapes (synthetic stream, CIFAR-100, then Mini-ImageNet at D 640
+# and CORe50's update at D 2,560), chip_smoke.py's check shapes, and the
+# edges: D = 1, 640, 2048, slabs over D and N = M = 1
 SLICE_SHAPES = [(30, 30, 160), (10, 20, 160), (20, 20, 160),
-                (210, 210, 160), (10, 200, 160), (200, 200, 160)]
+                (210, 210, 160), (10, 200, 160), (200, 200, 160),
+                (310, 310, 640), (10, 300, 640), (300, 300, 640), (110, 110, 2560)]
 PLAN_SHAPES = SLICE_SHAPES + [(13, 37, 50), (7, 5, 3), (1000, 1000, 640), (7, 5, 2048),
                               (3, 5, 4096), (33, 17, 4099), (30, 30, 1), (30, 30, 640),
                               (30, 30, 2048), (1, 1, 160), (1, 1, 1), (1, 210, 160),

@@ -1,6 +1,7 @@
 """The NI scenario of the port against ocl_tpu's, exactly: each distortion
 (noise, blur, occlusion) from the same `np.random` and `random` seeds, the
-NI split, and the synthetic NI stream's tasks and test sets."""
+NI split, the synthetic NI stream's tasks and test sets, and
+--plot_sample's grids."""
 
 import random
 
@@ -88,8 +89,28 @@ def test_ni_stream_matches_ocl_tpu(ns_type):
     assert not np.array_equal(got[0][0][1][0], got[1][0][1][0])   # runs reshuffle
 
 
-def test_plot_sample_is_not_ported():
-    params = default_params(data="synthetic", cl_type="ni", synthetic_size=30, device="cpu",
-                            verbose=False, plot_sample=True, ns_factor=FACTORS["noise"])
-    with pytest.raises(NotImplementedError, match="plot_sample"):
-        continuum("synthetic", "ni", params).new_run()
+def test_plot_sample_is_not_ported(tmp_path, monkeypatch):
+    """--plot_sample, once refused, now writes ocl_tpu's grids: one PNG of
+    the first 10 training images a task under result/plots/, pixel-equal to
+    ocl_tpu's from the same draws."""
+    from PIL import Image
+
+    monkeypatch.chdir(tmp_path)
+    kw = dict(data="synthetic", cl_type="ni", synthetic_size=30, verbose=False,
+              plot_sample=True, ns_type="noise", ns_factor=FACTORS["noise"])
+
+    def pngs(make, params):
+        make("synthetic", "ni", params).new_run()
+        folder = tmp_path / "result" / "plots"
+        out = {p.name: np.array(Image.open(p)) for p in sorted(folder.iterdir())}
+        for p in folder.iterdir():
+            p.unlink()
+        return out
+
+    got = seeded(lambda: pngs(continuum, default_params(**kw, device="cpu")), 14)
+    want = seeded(lambda: pngs(j_continuum, j_default_params(**kw)), 14)
+    assert list(got) == list(want) == ["ns_noise_task{}_factor{}.png".format(i, f)
+                                       for i, f in enumerate(FACTORS["noise"])]
+    for name, img in got.items():
+        assert img.shape == (32, 10 * 34 - 2, 3)
+        np.testing.assert_array_equal(img, want[name])

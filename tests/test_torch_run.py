@@ -22,6 +22,7 @@ import contextlib
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -274,9 +275,26 @@ def seed_report(names):
                       flush=True)
 
 
+def ocl_seed_report(name, seeds=G.CI_SEEDS):
+    """Golden and ocl_tpu's own Avg_End_Acc of configuration `name`, seed by
+    seed, through ocl_tpu's pin (tests/test_reference_parity.py::
+    _golden_compare). For one CPU thread, run the process on one core
+    (`taskset -c 0`); seeds can go to processes of their own."""
+    from test_reference_parity import _golden_compare
+
+    for seed in seeds:
+        t0 = time.time()
+        ref_acc, ocl_acc = _golden_compare(name, (seed,))
+        print("{} seed {}: golden {:.4f} ocl_tpu {:.4f} ({:.0f} s)".format(
+            name, seed, ref_acc, ocl_acc, time.time() - t0), flush=True)
+
+
 if __name__ == "__main__":
-    # no argument: the thread report; "seeds NAME ...": the per-seed report
+    # no argument: the thread report; "seeds NAME ...": the per-seed report;
+    # "ocl_seeds NAME [SEED ...]": ocl_tpu's own per-seed report
     if sys.argv[1:2] == ["seeds"]:
         seed_report(sys.argv[2:])
+    elif sys.argv[1:2] == ["ocl_seeds"]:
+        ocl_seed_report(sys.argv[2], [int(s) for s in sys.argv[3:]] or G.CI_SEEDS)
     else:
         thread_report()
