@@ -81,7 +81,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                restored from the checkpoint must equal what was saved, bit
                for bit; the resumed accuracy matrix must match the
                uninterrupted one within 0.02 in every entry (the largest gap
-               is printed); pairwise_sqdist must launch after the restore;
+               is printed); pairwise_sqdist must launch after the restore.
+               Then the three once more on the default algorithms: the
+               restore bit for bit, the accuracy gap printed, not gated;
   19. tune   — the tuner (ocl_tpu_torch.main_tune and
                experiment/tune.py::multiple_run_tune) on general_1 +
                synthetic_nc + config/agent/er/er_1k.yml over learning_rate
@@ -121,8 +123,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                of GDumb (gdumb_tune.yml, mem_epoch 30 -> 3), iCaRL
                (icarl_tune.yml) and EWC++ (ewc_tune.yml, lambda_ {100}),
                each ending with a best point from its grid; (e) ER + MIR,
-               GSS, match and mem_match, 3 runs stacked under deterministic
-               algorithms, each run's latest task above 0.5.
+               GSS, match and mem_match, 3 runs stacked of 2 tasks x 100
+               steps, each run's latest task above 0.5.
   22. data   — the dataset loaders at nf 20 on trees written here in each
                dataset's own format from --seed's default (class templates
                plus noise): (a) CIFAR-100 (50 train images a class of 500,
@@ -141,7 +143,11 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                resident on the card, peak device memory, and must read
                above 0.5 on the task trained; then the full CORe50 test set
                (44,972 images) made resident as the runner keeps it, its
-               GiB. Last the kernel against its plain version at every
+               GiB; (d) OpenLORIS's occlusion factor through the flag CLI
+               (general_main), plain ER, all 9 tasks of 10 objects (JPEGs
+               by PIL, resized to 50 px by the loader): images/s and each
+               task's accuracy on its own test set, every one above 0.5.
+               Last the kernel against its plain version at every
                shape (a) and (b) launched it with (d = 160 and 640); phase
                3 checks d = 640 and 2,560 among its shapes.
 Then one JSON line of kernel figures (K1's with its batched figures and the
@@ -257,11 +263,14 @@ STACKED_FLAGS = ["--device", "cuda", "--data", "synthetic", "--agent", "ER",
 STACKED_ASER_FLAGS = STACKED_FLAGS + ["--update", "ASER", "--retrieve", "ASER", "--aser_type",
                                       "asvm", "--k", "3", "--n_smp_cls", "2.0"]
 STACKED_PROFILE_STEPS = 5
-# (e) the other strategies, 3 runs stacked: 2 tasks x 50 steps into a buffer
-# of 200, full after 20 steps (GSS then takes its gated replacements). At 25
-# steps a task ER + match trained unstably on the card, stacked or not (a
-# sequential run's latest task read 0.684, a stacked one 0.028 to 1.0 from
-# call to call); at 50 every run reads 1.0 either way (PERF.md §6, PR 7)
+# (e) the other strategies, 3 runs stacked: 2 tasks x 100 steps (STRATEGY_SIZE
+# images a class) into a buffer of 200 (GSS then takes its gated
+# replacements). Shorter tasks end inside the loss spikes of SGD at lr 0.1:
+# at 25 steps ER + match read 0.028 to 1.0 from call to call (PR 7); at 50
+# ER + GSS read <= 0.5 on a task just trained in 3 of 54 run-tasks on the
+# default algorithms, every one finite and with no mislabelled slot, and in
+# none of 36 at 100 (tools/spread.py; PERF.md §6)
+STRATEGY_SIZE = 200
 STACKED_STRATEGIES = [
     ("mir", ["--retrieve", "MIR", "--subsample", "50", "--fused_replay", "False"]),
     ("gss", ["--update", "GSS", "--gss_mem_strength", "10", "--gss_batch_size", "10"]),
@@ -288,6 +297,18 @@ CIFAR100_TEST_PER_CLASS = 100       # as published
 CORE50_TRAIN, CORE50_TEST, CORE50_CLASSES = 3000, 1000, 50   # of ~15,000 and 44,972
 CORE50_FULL_TEST = 44972
 DATA_PROFILE_STEPS = 20
+# (d) OpenLORIS's occlusion factor (the one the flag CLI names), 9 tasks of
+# OPENLORIS_OBJECTS objects, OPENLORIS_TRAIN train and OPENLORIS_TEST test
+# images an object a task; 10% of a task's train images go to its val set.
+# At 50 train images (45 steps a task) task 0 read 0.1-0.2 in 3 of 5 runs
+# on the card, its running BN statistics behind its weights (0.97-1.0 on
+# batch statistics); at 100 (90 steps) every task of 3 runs read 1.0
+# (tools/spread.py; PERF.md §6)
+OPENLORIS_OBJECTS, OPENLORIS_TRAIN, OPENLORIS_TEST = 10, 100, 10
+OPENLORIS_FLAGS = ["--device", "cuda", "--data", "openloris", "--cl_type", "ni", "--ns_type",
+                   "occlusion", "--agent", "ER", "--nf", "20", "--mem_size", "1000",
+                   "--num_runs", "1", "--verbose", "False", "--store", "True",
+                   "--save-path", "openloris.pkl"]
 
 
 class CheckFailed(RuntimeError):
@@ -860,40 +881,12 @@ def quietly(fn, *args, **kwargs):
         raise
 
 
-@contextlib.contextmanager
-def deterministic(torch):
-    """Within the block, cuDNN and torch choose deterministic algorithms, so
-    that two runs from one state compute the same sums, and a call repeats
-    the last. Phase 18 compares a resumed run with an uninterrupted one, and
-    ER + ASER's picks hang on rounding: with the default algorithms, task 1
-    read 0.94 after task 2 in one run and 0.6667 in the other, from a
-    bit-for-bit restore. Phase 21 (e) gates small stacked runs whose
-    trajectories parted from call to call (ER + match at 25 steps a task;
-    one ER + GSS run read 0.0 on its latest task in one call, 1.0 in
-    others). PERF.md §6. Yields the set of the warnings of ops that have no
-    deterministic algorithm (they run as before)."""
-    import warnings
-
-    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
-             torch.are_deterministic_algorithms_enabled(),
-             torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    seen = set()
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            yield seen
-            seen.update(str(w.message).split(".")[0] for w in caught
-                        if "deterministic" in str(w.message))
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
-        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
-
-
-def run_resume_phase(torch, pairwise_sqdist, card):
-    """Phase 18: ER + ASER from its recipes through the YAML CLI,
-    uninterrupted; with --ckpt_dir, crashing in task 2; resumed."""
+def resume_sequence(torch, pairwise_sqdist):
+    """Phase 18's three runs of ER + ASER through the YAML CLI, in a
+    temporary working directory: uninterrupted; with --ckpt_dir, crashing in
+    task 2; resumed. Returns their accuracy matrices, seconds and launches,
+    what the restore verified, the checkpoint's meta and the resumed run's
+    output."""
     import numpy as np
 
     import ocl_tpu_torch.experiment.run as run_mod
@@ -931,15 +924,12 @@ def run_resume_phase(torch, pairwise_sqdist, card):
         pairwise_sqdist.launches = 0     # from here on: the launches after the restore
         return state, meta
 
-    with experiment_dir(), deterministic(torch) as nondeterministic:
+    with experiment_dir():
         cuts = {"num_runs: 5": "num_runs: 1"}
         general = cut_recipe(GENERAL, "general.yml", cuts)
         general_ckpt = cut_recipe(GENERAL, "general_ckpt.yml", cuts, [("ckpt_dir", "ckpt")])
         data = cut_recipe(SYNTHETIC.format("nc"), "data.yml", {"num_tasks: 5": "num_tasks: 3"},
                           [("synthetic_size", 200)])
-        print("[resume] {} + {} + {}, cut: num_runs 5 -> 1, num_tasks 5 -> 3, synthetic_size "
-              "2000 -> 200 a class (60 steps a task); nf 20, batch 10".format(
-                  GENERAL, SYNTHETIC.format("nc"), ASER_RECIPE))
 
         def args(general_file):
             return build_parser().parse_args(["--general", general_file, "--data", data, "--agent",
@@ -974,12 +964,33 @@ def run_resume_phase(torch, pairwise_sqdist, card):
             run_mod._new_agent_and_state = new_agent
             checkpoint.load_checkpoint = load_checkpoint
     want, got = matrices
-    gap = float(np.max(np.abs(got - want)))
+    return {"want": want, "got": got, "gap": float(np.max(np.abs(got - want))), "times": times,
+            "launches": launches, "verified": verified, "meta": saved_meta, "out": out}
+
+
+def run_resume_phase(torch, pairwise_sqdist, card):
+    """Phase 18: resume_sequence under deterministic algorithms, gated; then
+    once more on the default algorithms, its gap printed. Deterministic
+    algorithms give the uninterrupted and the resumed run the same sums, so
+    the gate holds the restore alone: on the default algorithms ER + ASER's
+    picks hang on rounding, and from a bit-for-bit restore task 1 read 0.94
+    after task 2 in one run and 0.6667 in the other (PERF.md §6)."""
+    import numpy as np
+
+    from ocl_tpu_torch.tools.spread import deterministic
+
+    print("[resume] {} + {} + {}, cut: num_runs 5 -> 1, num_tasks 5 -> 3, synthetic_size "
+          "2000 -> 200 a class (60 steps a task); nf 20, batch 10".format(
+              GENERAL, SYNTHETIC.format("nc"), ASER_RECIPE))
+    with deterministic() as nondeterministic:
+        det = resume_sequence(torch, pairwise_sqdist)
+    want, got, verified = det["want"], det["got"], det["verified"]
+    gap, times, launches = det["gap"], det["times"], det["launches"]
     print("[resume] deterministic algorithms (cuDNN and torch); ops without one: {}".format(
         sorted(nondeterministic) or "none"))
     print("[resume] uninterrupted {:.1f} s, interrupted in task 2 {:.1f} s, resumed {:.1f} s ({}); "
           "checkpoint after task {}; restored {} tensors, generator {}, host state {}: {}".format(
-              *times, card, saved_meta["task"], verified["tensors"],
+              *times, card, det["meta"]["task"], verified["tensors"],
               "equal" if verified["generator"] else "DIFFERENT",
               "equal" if verified["host"] else "DIFFERENT",
               "bit for bit" if not verified["mismatches"] else
@@ -988,7 +999,7 @@ def run_resume_phase(torch, pairwise_sqdist, card):
           "pairwise_sqdist launches uninterrupted {}, after the restore {}".format(
               np.round(want[0], 4).tolist(), np.round(got[0], 4).tolist(), gap, RESUME_GAP,
               launches[0], launches[1]))
-    require("resuming from checkpoint: run 0 after task 1" in out,
+    require("resuming from checkpoint: run 0 after task 1" in det["out"],
             "resume: the third run did not resume after task 1")
     require(not verified["mismatches"] and verified["generator"] and verified["host"],
             "resume: the restored state differs from the saved one")
@@ -997,9 +1008,24 @@ def run_resume_phase(torch, pairwise_sqdist, card):
     require(gap <= RESUME_GAP, "resume: the resumed accuracies part by {} > {}".format(
         gap, RESUME_GAP))
     require(launches[1] > 0, "resume: no pairwise_sqdist launch after the restore")
+
+    # the same on the default algorithms: the restore is bit for bit, the sums
+    # after it are the card's own order, which ASER's picks can amplify
+    default = resume_sequence(torch, pairwise_sqdist)
+    print("[resume] default algorithms: uninterrupted {} resumed {}; largest gap {:.4f} (not "
+          "gated); restore {}; {:.1f} s for the three runs".format(
+              np.round(default["want"][0], 4).tolist(), np.round(default["got"][0], 4).tolist(),
+              default["gap"], "bit for bit" if not default["verified"]["mismatches"] else
+              "MISMATCH", sum(default["times"])))
+    require(not default["verified"]["mismatches"] and default["verified"]["generator"] and
+            default["verified"]["host"],
+            "resume: on the default algorithms the restored state differs from the saved one")
     return {"seconds": times, "gap": gap, "tensors": verified["tensors"],
             "launches": launches[0], "launches_after_restore": launches[1],
-            "acc": want[0].tolist(), "resumed_acc": got[0].tolist()}
+            "acc": want[0].tolist(), "resumed_acc": got[0].tolist(),
+            "default_gap": default["gap"], "default_acc": default["want"][0].tolist(),
+            "default_resumed_acc": default["got"][0].tolist(),
+            "default_seconds": default["times"]}
 
 
 def count_tensors(torch, tree):
@@ -1216,10 +1242,11 @@ def profile_stacked_steps(torch, agent, ss, ctx, xs, ys, steps, pairwise_sqdist)
         n, t = counts.get(name[:60], (0, 0.0))
         counts[name[:60]] = (n + 1, t + us)
     top = sorted(counts.items(), key=lambda kv: -kv[1][1])[:4]
+    busy = busy_ms(prof)
     return {"kernels": len(kernels) / steps,
             "device_ms": sum(us for _, us in kernels) / 1e3 / steps,
-            "busy_ms": busy_ms(prof) / steps, "wall_ms": wall * 1e3 / steps,
-            "busy": busy_ms(prof) / (wall * 1e3),
+            "busy_ms": busy / steps, "wall_ms": wall * 1e3 / steps,
+            "busy": busy / (wall * 1e3),
             "k1_launches": (pairwise_sqdist.launches - before) / steps,
             "k1_traced": sum(KERNEL in name for name, _ in kernels) / steps,
             "top": [(k, n / steps, t / 1e3 / steps) for k, (n, t) in top]}
@@ -1495,32 +1522,31 @@ def run_stacked_phase(torch, distance, card, floor_ms):
 
 def run_stacked_strategies(torch):
     """Phase 21 (e): ER + each strategy of STACKED_STRATEGIES, 3 runs stacked
-    through the CLI; each run's accuracy on its latest task (match
-    retrieves the incoming batch's classes only, so the earlier task is
-    forgotten by design). Returns them by strategy."""
+    through the CLI on the default algorithms; each run's accuracy on its
+    latest task (match retrieves the incoming batch's classes only, so the
+    earlier task is forgotten by design). Returns them by strategy."""
     import numpy as np
 
     from ocl_tpu_torch.config import build_parser
     from ocl_tpu_torch.general_main import main as cli_main
 
     out = {}
-    with experiment_dir(), deterministic(torch) as nondeterministic:
+    with experiment_dir():
         for tag, flags in STACKED_STRATEGIES:
             t0 = time.time()
             res, _ = quietly(cli_main, build_parser().parse_args(
-                STACKED_FLAGS + ["--synthetic_size", "100", "--mem_size", "200", "--parallel_runs",
-                                 "True", "--store", "True", "--save-path", tag + ".pkl"] + flags))
+                STACKED_FLAGS + ["--synthetic_size", str(STRATEGY_SIZE), "--mem_size", "200",
+                                 "--parallel_runs", "True", "--store", "True", "--save-path",
+                                 tag + ".pkl"] + flags))
             with open("result/synthetic/{}.pkl".format(tag), "rb") as f:
                 latest = pickle.load(f)["acc_array"][:, -1, -1]
-            print("[stacked] (e) ER + {}, {} runs stacked, 2 tasks x 50 steps, mem 200: "
+            print("[stacked] (e) ER + {}, {} runs stacked, 2 tasks x {} steps, mem 200: "
                   "Avg_End_Acc {:.4f}, latest task a run {} ({:.1f} s)".format(
-                      tag, STACKED_RUNS, float(res[0][0]), [round(float(a), 4) for a in latest],
-                      time.time() - t0))
+                      tag, STACKED_RUNS, STRATEGY_SIZE * 5 // 10, float(res[0][0]),
+                      [round(float(a), 4) for a in latest], time.time() - t0))
             require(np.isfinite(latest).all() and (latest > 0.5).all(),
                     "stacked ER + {}: latest-task accuracies {} not above 0.5".format(tag, latest))
             out[tag] = latest.tolist()
-    print("[stacked] (e) deterministic algorithms (cuDNN and torch); ops without one: {}".format(
-        sorted(nondeterministic) or "none"))
     return out
 
 
@@ -1621,6 +1647,30 @@ def write_core50(root, seed):
             pickle.dump(obj, f)
 
 
+def write_openloris(root, seed):
+    """The occlusion factor's tree, datasets/openloris/occlusion/<split>/
+    task<i>/<object>/*.jpg for the 9 tasks: DATAPATH's first
+    OPENLORIS_OBJECTS objects, JPEGs of 64 x 64 written by PIL (the loader
+    resizes them to 50 x 50). An image's label is its object's index, so
+    0-9 here: from index 69 on a label passes the 69-class head, which
+    neither package handles (ROADMAP.md §3)."""
+    import numpy as np
+    from PIL import Image
+
+    from ocl_tpu_torch.data.openloris_objects import DATAPATH
+
+    g = np.random.RandomState(seed)
+    templates = g.rand(OPENLORIS_OBJECTS, 64, 64, 3).astype(np.float32)
+    for task in range(1, 10):
+        for split, n in (("train", OPENLORIS_TRAIN), ("test", OPENLORIS_TEST)):
+            y = np.repeat(np.arange(OPENLORIS_OBJECTS), n)
+            for i, (img, label) in enumerate(zip(class_images(g, templates, y, 0.15), y)):
+                folder = os.path.join(root, "datasets", "openloris", "occlusion", split,
+                                      "task{}".format(task), DATAPATH[label])
+                os.makedirs(folder, exist_ok=True)
+                Image.fromarray(img).save(os.path.join(folder, "{}.jpg".format(i)), quality=90)
+
+
 def recipe_params(general, data, agent, **cuts):
     """The recipe's merged parameters (as main_config merges them) on the
     card, with `cuts` over them."""
@@ -1692,12 +1742,13 @@ def run_data_task(torch, distance, params, tag):
 def run_data_phase(torch, distance, card):
     """Phase 22: (a) CIFAR-100 through main_config, (b) Mini-ImageNet and
     (c) CORe50 one task each, on trees written here; then the full CORe50
-    test set's residency on the card."""
+    test set's residency on the card; (d) OpenLORIS through general_main."""
     import numpy as np
 
     import ocl_tpu_torch.experiment.run as run_mod
     from ocl_tpu_torch.config import build_parser as cli_parser
     from ocl_tpu_torch.data import continuum, prepare_test_loaders
+    from ocl_tpu_torch.general_main import main as cli_main
     from ocl_tpu_torch.main_config import build_parser, main as config_main
 
     seed = cli_parser().get_default("seed")
@@ -1801,6 +1852,34 @@ def run_data_phase(torch, distance, card):
         print("[data] (c) the full CORe50 test set ({} images at 128 px, test_batch {}) resident "
               "on the card: {:.3f} GiB, prepared in {:.1f} s".format(
                   CORE50_FULL_TEST, params.test_batch, full_gib, full_s))
+        shutil.rmtree(os.path.join(tmp, "datasets", "core50"))
+
+        # (d) OpenLORIS through the flag CLI, all 9 tasks
+        t0 = time.time()
+        write_openloris(tmp, seed)
+        write_s = time.time() - t0
+        t0 = time.time()
+        _, log = quietly(cli_main, cli_parser().parse_args(OPENLORIS_FLAGS))
+        run_s = time.time() - t0
+        with open(os.path.join("result", "openloris", "openloris.pkl"), "rb") as f:
+            acc = pickle.load(f)["acc_array"][0]
+        own = np.diag(acc)
+        tput = [line for line in log.splitlines() if "stream throughput" in line][0]
+        ips = float(tput.split("throughput")[1].split()[0])
+        out["openloris"] = {"acc": acc.tolist(), "own": own.tolist(), "images_per_s": ips,
+                            "seconds": run_s, "write_s": write_s}
+        print("[data] (d) OpenLORIS occlusion through general_main ({}), ER, nf 20, mem 1000, "
+              "cut: {} objects of 121 (labels 0-{}), {} train and {} test JPEGs of 64 px an "
+              "object a task (written in {:.1f} s), 9 tasks of {} steps: {:.1f} s ({}); {:.1f} "
+              "images/s; each task's accuracy on its own test set after training it {}".format(
+                  " ".join(OPENLORIS_FLAGS), OPENLORIS_OBJECTS, OPENLORIS_OBJECTS - 1,
+                  OPENLORIS_TRAIN, OPENLORIS_TEST, write_s,
+                  OPENLORIS_OBJECTS * OPENLORIS_TRAIN * 9 // 10 // 10, run_s, card, ips,
+                  [round(float(a), 4) for a in own]))
+        require(acc.shape == (9, 9) and np.isfinite(acc).all(),
+                "data: OpenLORIS accuracy matrix {}".format(acc.shape))
+        require(own.min() > 0.5, "data: OpenLORIS's tasks read {} after training each".format(
+            own.tolist()))
     return out
 
 

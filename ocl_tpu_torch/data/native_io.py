@@ -1,10 +1,10 @@
 """ctypes bridge to the port's JPEG batch decoder, `csrc/dataio.cpp`
 (counterpart of ocl_tpu/data/native_io.py).
 
-The library is built at first use with g++ and libjpeg into
-`build/ocl_tpu_torch/` at the root of the checkout, under a name keyed by a
-hash of its source and flags (as `ops/_build.py` keys the CUDA kernels), so
-an edit rebuilds it and a second process reuses it. It is host code: CORE50's
+The library is built at first use with g++ and libjpeg by `ops/_build.py`,
+as the CUDA kernels are: into `build/ocl_tpu_torch/` at the root of the
+checkout, under a name keyed by a hash of its source and flags, so an edit
+rebuilds it and a second process reuses it. It is host code: CORE50's
 loader decodes its JPEGs with it, and falls back to PIL where it returns None
 (`data/datasets.py::CORE50._load_imgs`, ocl_tpu's order).
 """
@@ -13,47 +13,27 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import subprocess
-import tempfile
 
 import numpy as np
 
-from ocl_tpu_torch.ops._build import BUILD_DIR, PKG_DIR
+from ocl_tpu_torch.ops import _build
 
-SOURCE = PKG_DIR / "csrc" / "dataio.cpp"
+SOURCE = _build.PKG_DIR / "csrc" / "dataio.cpp"
 GXX_FLAGS = ("-O2", "-shared", "-fPIC")
 LINK = ("-ljpeg", "-lpthread")
 
 
 def library_path():
     """Where the decoder's library lives, keyed by its source and flags."""
-    text = SOURCE.read_bytes() + " ".join(GXX_FLAGS + LINK).encode()
-    return BUILD_DIR / "libdataio_{}.so".format(hashlib.sha256(text).hexdigest()[:16])
+    return _build.library_path(SOURCE, GXX_FLAGS + LINK)
 
 
 def build_library():
     """Compile the decoder unless its library exists; returns the library's
     path. Raises RuntimeError when g++ cannot run or the build fails (no
     libjpeg headers, for one)."""
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = ["g++", *GXX_FLAGS, "-o", tmp, str(SOURCE), *LINK]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        os.unlink(tmp)
-        raise RuntimeError("{} could not run: {}".format(" ".join(cmd), e)) from e
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("{} failed:\n{}".format(" ".join(cmd), proc.stderr[-2000:]))
-    os.replace(tmp, so)
-    return so
+    return _build.build(SOURCE, "g++", GXX_FLAGS, LINK)
 
 
 @functools.cache

@@ -1,10 +1,11 @@
-"""Build and load the port's CUDA kernels: nvcc into a plain-C shared
-library, bound with ctypes.
+"""Build and load the port's native libraries: the CUDA kernels (nvcc into a
+plain-C shared library, bound with ctypes) and the host JPEG decoder (g++,
+data/native_io.py).
 
-The library is built at first use into `build/ocl_tpu_torch/` at the root of
+A library is built at first use into `build/ocl_tpu_torch/` at the root of
 the checkout, under a name keyed by a hash of its source and flags, so an edit
-rebuilds it and a second process reuses it. A missing nvcc or a failed build
-raises; nothing falls back.
+rebuilds it and a second process reuses it. A missing compiler or a failed
+build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -50,30 +51,36 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def library_path(source: str) -> Path:
-    """Where the library of `source` lives, keyed by its content and flags."""
+def library_path(source, flags=NVCC_FLAGS) -> Path:
+    """Where the library of `source` (a file of csrc/, or a path) lives,
+    keyed by its content and `flags`."""
     text = (PKG_DIR / "csrc" / source).read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / "lib{}_{}.so".format(Path(source).stem, digest)
 
 
-def build(source: str) -> Path:
-    """Compile `source` unless its library exists; returns the library path.
-    The compiler's report (registers, shared memory, spills) is kept beside
-    the library as `.log`."""
-    so = library_path(source)
+def build(source, compiler=None, flags=NVCC_FLAGS, link=()) -> Path:
+    """Compile `source` with `compiler` (nvcc when None) unless its library
+    exists; returns the library path. The compiler's report (for nvcc:
+    registers, shared memory, spills) is kept beside the library as `.log`.
+    Raises RuntimeError when the compiler cannot run or the build fails."""
+    so = library_path(source, tuple(flags) + tuple(link))
     if so.exists():
         return so
-    nvcc = find_nvcc()
+    compiler = compiler or find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(PKG_DIR / "csrc" / source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmd = [compiler, *flags, "-o", tmp, str(PKG_DIR / "csrc" / source), *link]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        os.unlink(tmp)
+        raise RuntimeError("{} could not run: {}".format(" ".join(cmd), e)) from e
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError("nvcc failed ({}):\n{}\n{}".format(
-            " ".join(cmd), proc.stdout, proc.stderr))
+        raise RuntimeError("{} failed:\n{}\n{}".format(
+            " ".join(cmd), proc.stdout, proc.stderr[-4000:]))
     so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, so)
     return so

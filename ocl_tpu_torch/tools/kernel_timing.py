@@ -18,7 +18,10 @@ The launch floor is device_ms of `t.zero_()` on a one-element tensor, the
 least a launch costs the card inside a graph. `kernel_times` reads kernel
 device times by name from a `torch.profiler` trace, as a cross-check, and
 `busy_ms` the time in which at least one kernel ran: kernels on several
-streams overlap, so their sum can exceed the wall time.
+streams overlap, so their sum can exceed the wall time. Both read the
+trace's raw device events, the ones `prof.events()` lists with device type
+CUDA: `prof.events()` first builds the tree of every host op, which takes
+tens of seconds for a trace of 10^5 events.
 
 Every function here needs a CUDA device; nothing falls back to the CPU.
 """
@@ -117,27 +120,33 @@ def sqdist_bound(n, m, d):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
+def device_events(prof):
+    """[(name, start ns, end ns)] of every device event (kernel, memcpy,
+    memset) of a finished `torch.profiler.profile`, from its raw kineto
+    results."""
+    return [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
 def kernel_times(prof):
     """[(kernel name, device microseconds)] of every CUDA kernel in a
     finished `torch.profiler.profile`."""
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [(name, (end - start) / 1e3) for name, start, end in device_events(prof)]
 
 
 def busy_ms(prof):
     """Milliseconds of a finished `torch.profiler.profile` in which at least
     one CUDA kernel ran (the union of their intervals)."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    total, end = 0.0, None
-    for s, e in spans:
+    total, end = 0, None
+    for _, s, e in sorted(device_events(prof), key=lambda ev: (ev[1], ev[2])):
         if end is None or s > end:
             total += e - s
             end = e
         elif e > end:
             total += e - end
             end = e
-    return total / 1e3
+    return total / 1e6
 
 
 def profiled_ms(fn, name, calls=100):

@@ -33,7 +33,7 @@ def test_port_imports_no_jax_and_no_ocl_tpu():
                  "ops.augment", "utils.meters", "agents.cndpm", "models.ndpm", "models.ndpm_vars",
                  "utils.io", "utils.profiling", "utils.checkpoint", "experiment.tune",
                  "main_config", "main_tune", "data.non_stationary", "data.datasets",
-                 "data.native_io", "data.openloris_objects", "utils.plot"):
+                 "data.native_io", "data.openloris_objects", "utils.plot", "tools.spread"):
         assert "ocl_tpu_torch." + name in names, name
     proc = subprocess.run([sys.executable, "-c", CHECK], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
