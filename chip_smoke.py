@@ -24,11 +24,13 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                  host    — host clock per eager call, no sync (Python cost);
                and the kernel's time by name from torch.profiler at one shape;
   4. main    — ER with ASER update + retrieval through the port's CLI at the
-               full width of Reduced ResNet-18 (nf 20), 5 tasks x 100 steps
-               of the synthetic stream; the kernel must have launched, and
-               Avg_End_Acc must be finite and above 0.5. Then 20 steps with a
-               full buffer (every step takes the SV paths) under
-               torch.profiler: the kernel's device time and launches per step;
+               full width of Reduced ResNet-18 (nf 20), 2 tasks x 100 steps
+               of the synthetic stream (5 classes a task; cut from 5 tasks
+               for the script's time); the kernel must have launched,
+               and Avg_End_Acc must be finite and above 0.5. Then 20 steps
+               with a full buffer (every step takes the SV paths) of the
+               5-task stream under torch.profiler: the kernel's device time
+               and launches per step;
   5. er      — one task of plain ER (random update + retrieval, two-pass) on
                the same stream; its accuracy on that task must exceed 0.5;
   6-12.      — the rest of the replay family through the port's agents on the
@@ -134,7 +136,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                launches and each (n, m, d) it ran at, images/s, each task's
                accuracy on its own test set after training it (every one
                above 0.5); (b) Mini-ImageNet's three cache pickles at full
-               size with aser_1k_mini.yml, task 0 of 10; (c) CORe50 ni
+               size with aser_1k_mini.yml, task 0 cut to MINI_STEPS (200)
+               of its 500 steps, 200 images of each class (the script's
+               time); (c) CORe50 ni
                (paths, LUP and labels pickles, 4,000 JPEGs at 128 px
                decoded once into the bin cache, then read from it) with
                config/general_1.yml and er_1k.yml, task 0 of 8. (b) and (c)
@@ -149,10 +153,37 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                task's accuracy on its own test set, every one above 0.5.
                Last the kernel against its plain version at every
                shape (a) and (b) launched it with (d = 160 and 640); phase
-               3 checks d = 640 and 2,560 among its shapes.
-Then one JSON line of kernel figures (K1's with its batched figures and the
-data runs' launches and shapes), the script's total seconds, and last the
-result line {"ok": true, "device": {...}}.
+               3 checks d = 640 and 2,560 among its shapes. (b)'s task runs
+               once more in bf16 on its tree, for phase 23 (d).
+  23. bf16   — --compute_dtype bf16 (the model's forward under autocast,
+               parameters, gradients, BN statistics and optimizer state in
+               fp32) at nf 20: (a) ER + ASER through general_main, phase 4's
+               flags cut to 2 tasks x 100 steps, with a forward hook on every
+               convolution: K1 must launch, on fp32 inputs only, every
+               convolution output must be bf16 and task 1 must read above
+               0.5 after training it; images/s and a profiled SV step's
+               launches and device ms beside phase 4's fp32 ones; (b) SCR with
+               tools/parity_vs_reference.py's SCR_BF16 flags (eps_mem_batch
+               50, temp 0.07, head mlp, two-pass views), 2 tasks x 50 steps,
+               the same gate; (c) phase 21 (a)'s 3 fused-ER runs stacked in
+               bf16, each run's task 1 above 0.5, aggregate images/s beside
+               21 (a)'s fp32; (d) ER at batch 128 with 128 memory rows
+               (bench.py's er_batch128_bf16 cell; one task of 78 steps), and
+               phase 22 (b)'s Mini-ImageNet task (its 200 steps, on its tree),
+               each in fp32 and in bf16: images/s, device ms a step over
+               DATA_PROFILE_STEPS profiled steps, busy share, peak memory;
+               (e) ResNet-18, -34, -50, -101 and -152 at nf 64, 32 px, batch
+               10, in fp32 (TF32 off) and in bf16: ms a training step, peak
+               memory, FLOPs a step by utils/flops.py and the TFLOP/s they
+               imply; ResNet-18 and -50 in fp32 and ResNet18_pretrained at
+               224 px from an .npz the phase writes must give the CPU's
+               train-mode logits on the same weights within rtol 1e-3 /
+               atol 1e-4; (f) utils/profiling.py::trace of 3 more SV steps of
+               (a) must name K1's kernel, among its device events and in the
+               Chrome trace file.
+Then one JSON line of kernel figures (K1's with its batched figures, the
+data runs' and the bf16 runs' launches and shapes), the script's total
+seconds, and last the result line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -190,6 +221,9 @@ MAIN_FLAGS = ["--device", "cuda", "--data", "synthetic", "--agent", "ER",
               "--eps_mem_batch", "10", "--batch", "10", "--learning_rate", "0.1",
               "--nf", "20", "--num_tasks", "5", "--synthetic_size", "500",
               "--num_runs", "1", "--matmul_precision", "highest", "--verbose", "False"]
+# phase 4's run and phase 23 (a)'s: 2 tasks of 5 classes x 200 images, 100
+# steps a task (cut from MAIN_FLAGS' 5 tasks x 100 steps: the script's time)
+MAIN_RUN_FLAGS = MAIN_FLAGS + ["--num_tasks", "2", "--synthetic_size", "200"]
 PROFILE_STEPS = 20
 # phases 6-12: (tag, label, flags over plain ER's, tasks, profiled steps).
 # Reading a trace back takes time in proportion to its events, thousands a
@@ -291,6 +325,11 @@ CVPR_GENERAL = "config_CVPR/general.yml"
 CIFAR100_DATA = "config_CVPR/data/cifar100/cifar100_nc.yml"
 MINI_DATA = "config_CVPR/data/mini_imagenet/mini_imagenet_nc.yml"
 MINI_RECIPE = "config_CVPR/agent/aser/aser_1k_mini.yml"
+# (b) trains MINI_STEPS of task 0's 500 steps (200 of each class's 500
+# images, evenly spaced, in the stream's order; the buffer of 1,000 fills in
+# the first 100 steps; the script's time), in fp32, then in bf16 for phase
+# 23 (d)
+MINI_STEPS = 200
 CORE50_DATA = "config/data/core50/core50_ni.yml"
 CIFAR100_TRAIN_PER_CLASS = 50       # of 500: the cut
 CIFAR100_TEST_PER_CLASS = 100       # as published
@@ -309,6 +348,30 @@ OPENLORIS_FLAGS = ["--device", "cuda", "--data", "openloris", "--cl_type", "ni",
                    "occlusion", "--agent", "ER", "--nf", "20", "--mem_size", "1000",
                    "--num_runs", "1", "--verbose", "False", "--store", "True",
                    "--save-path", "openloris.pkl"]
+
+# phase 23: --compute_dtype bf16 (the model's forward under autocast; K1 on
+# fp32 features). (a) ER + ASER, MAIN_FLAGS cut to 2 tasks x 100 steps, and
+# TRACE_STEPS SV steps under utils/profiling.py::trace (f); (b) SCR with
+# tools/parity_vs_reference.py's SCR_BF16 flags, 2 tasks x 50 steps; (c)
+# phase 21 (a)'s stacked runs; (d) ER at batch 128 with 128 memory rows
+# (bench.py's er_batch128_bf16 cell), one task of B128_SIZE images a class,
+# and phase 22 (b)'s Mini-ImageNet task, in fp32 and in bf16; (e) the
+# ResNet family at nf 64, 32 px, batch RESNET_BATCH
+BF16 = ["--compute_dtype", "bf16"]
+BF16_RUN_FLAGS = MAIN_RUN_FLAGS + BF16
+SCR_BF16 = ("scr_bf16", "SCR in bf16 (SCR_BF16: eps_mem_batch 50, temp 0.07, head mlp, "
+            "two-pass views)",
+            ["--agent", "SCR", "--eps_mem_batch", "50", "--temp", "0.07", "--head", "mlp",
+             "--fused_replay", "False"] + BF16 + HALF, 2, FAMILY_PROFILE_STEPS)
+TRACE_STEPS = 3
+B128_SIZE = 2000
+B128_FLAGS = ["--device", "cuda", "--data", "synthetic", "--agent", "ER", "--mem_size", "1000",
+              "--batch", "128", "--eps_mem_batch", "128", "--learning_rate", "0.1", "--nf", "20",
+              "--num_tasks", "2", "--synthetic_size", str(B128_SIZE), "--num_runs", "1",
+              "--verbose", "False"]
+RESNETS = ("ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152")
+RESNET_BATCH, RESNET_STEPS = 10, 10
+PRETRAINED_SIZE = 224
 
 
 class CheckFailed(RuntimeError):
@@ -431,10 +494,12 @@ def time_kernel(torch, pairwise_sqdist, pairwise_sqdist_plain, device):
     return shapes, floor, ms
 
 
-def profile_sv_steps(torch, device):
-    """Phase 4's profile: the ER + ASER agent fills its buffer with task 0,
-    takes 5 warm steps of task 1, then PROFILE_STEPS steps under
-    torch.profiler, each of them on the SV paths."""
+def profile_sv_steps(torch, device, flags=MAIN_FLAGS, tag="main", trace_dir=None):
+    """Phase 4's profile (and phase 23 (a)'s with its flags): the ER + ASER
+    agent fills its buffer with task 0, takes 5 warm steps of task 1, then
+    PROFILE_STEPS steps under torch.profiler, each of them on the SV paths.
+    With `trace_dir`, TRACE_STEPS more steps under utils/profiling.py::trace
+    into it, whose profile is returned beside the figures."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -442,8 +507,9 @@ def profile_sv_steps(torch, device):
     from ocl_tpu_torch.data import continuum
     from ocl_tpu_torch.registry import agents
     from ocl_tpu_torch.tools.kernel_timing import kernel_times
+    from ocl_tpu_torch.utils.profiling import trace
 
-    params = finalize(build_parser().parse_args(MAIN_FLAGS))
+    params = finalize(build_parser().parse_args(flags))
     np.random.seed(params.seed)
     stream = continuum(params.data, params.cl_type, params)
     stream.new_run()
@@ -456,10 +522,10 @@ def profile_sv_steps(torch, device):
     warm = 5 * params.batch
     agent.train_task(state, ctx, x[:warm], y[:warm])
     torch.cuda.synchronize()
+    end = warm + PROFILE_STEPS * params.batch
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        agent.train_task(state, ctx, x[warm: warm + PROFILE_STEPS * params.batch],
-                         y[warm: warm + PROFILE_STEPS * params.batch])
+        agent.train_task(state, ctx, x[warm:end], y[warm:end])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = kernel_times(prof)
@@ -469,12 +535,19 @@ def profile_sv_steps(torch, device):
                 "kernels": len(kernels) / PROFILE_STEPS,
                 "device_ms": sum(us for _, us in kernels) / 1e3 / PROFILE_STEPS,
                 "wall_ms": wall * 1e3 / PROFILE_STEPS}
-    print("[main] {} profiled SV steps: {} {:.1f} launches, {:.5f} ms device a step; all kernels "
+    print("[{}] {} profiled SV steps: {} {:.1f} launches, {:.5f} ms device a step; all kernels "
           "{:.0f} launches, {:.3f} ms device a step; {:.1f} ms a step on the host clock under the "
-          "profiler".format(PROFILE_STEPS, KERNEL, per_step["k1_launches"], per_step["k1_device_ms"],
+          "profiler".format(tag, PROFILE_STEPS, KERNEL,
+                            per_step["k1_launches"], per_step["k1_device_ms"],
                             per_step["kernels"], per_step["device_ms"], per_step["wall_ms"]))
     require(per_step["k1_launches"] > 0, "the profiled SV steps ran no {} kernel".format(KERNEL))
-    return per_step
+    if trace_dir is None:
+        return per_step
+    with trace(trace_dir) as traced:
+        agent.train_task(state, ctx, x[end:end + TRACE_STEPS * params.batch],
+                         y[end:end + TRACE_STEPS * params.batch])
+        torch.cuda.synchronize()
+    return per_step, traced
 
 
 def profile_steps(torch, agent, state, ctx, x, y, steps):
@@ -1671,6 +1744,26 @@ def write_openloris(root, seed):
                 Image.fromarray(img).save(os.path.join(folder, "{}.jpg".format(i)), quality=90)
 
 
+@contextlib.contextmanager
+def k1_inputs(distance):
+    """Within the block, a count of each (a.dtype, b.dtype) that the kernel
+    is launched with."""
+    import collections
+
+    seen = collections.Counter()
+    launch = distance._launch
+
+    def recorded(a, b, out, n, m, d, points):
+        seen[(str(a.dtype), str(b.dtype))] += 1
+        return launch(a, b, out, n, m, d, points)
+
+    distance._launch = recorded
+    try:
+        yield seen
+    finally:
+        distance._launch = launch
+
+
 def recipe_params(general, data, agent, **cuts):
     """The recipe's merged parameters (as main_config merges them) on the
     card, with `cuts` over them."""
@@ -1680,11 +1773,13 @@ def recipe_params(general, data, agent, **cuts):
     return merge_yaml_params(*files, verbose=False, device="cuda", **cuts)
 
 
-def run_data_task(torch, distance, params, tag):
-    """One task of `params`' stream through the port's agent at nf 20: the
-    task trained (host clock, synced), evaluated on every task's test set
-    (all resident on the card), then DATA_PROFILE_STEPS more steps of it
-    under torch.profiler. Returns the figures."""
+def run_data_task(torch, distance, params, tag, steps=None):
+    """One task of `params`' stream through the port's agent at nf 20 (cut
+    to `steps` batches if given, evenly spaced over the task so that every
+    class stays in it): the task trained (host clock, synced),
+    evaluated on every task's test set (all resident on the card), then
+    DATA_PROFILE_STEPS more steps of it under torch.profiler. Returns the
+    figures."""
     import random
 
     import numpy as np
@@ -1699,6 +1794,9 @@ def run_data_task(torch, distance, params, tag):
     stream = continuum(params.data, params.cl_type, params)
     stream.new_run()
     x, y, labels = next(stream)
+    if steps is not None:   # every class of the task, in the stream's order
+        keep = np.linspace(0, len(y) - 1, steps * params.batch).round().astype(int)
+        x, y = x[keep], y[keep]
     load_s = time.time() - t0
     agent = agents[params.agent](params)
     state = agent.init_state(params.seed)
@@ -1806,14 +1904,24 @@ def run_data_phase(torch, distance, card):
         write_mini_imagenet(tmp, seed)
         write_s = time.time() - t0
         params = recipe_params(CVPR_GENERAL, MINI_DATA, MINI_RECIPE, num_runs=1)
-        print("[data] (b) Mini-ImageNet: {} + {} + {}, cut: num_runs 10 -> 1, task 0 of 10; "
+        print("[data] (b) Mini-ImageNet: {} + {} + {}, cut: num_runs 10 -> 1, task 0 of 10, {} "
+              "steps of 500 (200 images of each class's 500); "
               "the cache pickles at full size (60,000 images, written in {:.1f} s)".format(
-                  CVPR_GENERAL, MINI_DATA, MINI_RECIPE, write_s))
-        out["mini_imagenet"] = run_data_task(torch, distance, params, "(b) Mini-ImageNet")
+                  CVPR_GENERAL, MINI_DATA, MINI_RECIPE, MINI_STEPS, write_s))
+        out["mini_imagenet"] = run_data_task(torch, distance, params, "(b) Mini-ImageNet",
+                                             MINI_STEPS)
         require(out["mini_imagenet"]["launches"] > 0,
                 "data: the Mini-ImageNet ASER run launched no pairwise_sqdist kernel")
         require(all(s[0][2] == 640 for s in out["mini_imagenet"]["shapes"]),
                 "data: Mini-ImageNet's kernel shapes are not at d 640")
+        # phase 23 (d): the same task in bf16 on this tree (printed there)
+        params = recipe_params(CVPR_GENERAL, MINI_DATA, MINI_RECIPE, num_runs=1,
+                               compute_dtype="bf16")
+        t0 = time.time()
+        with k1_inputs(distance) as dtypes:
+            out["mini_imagenet_bf16"] = run_data_task(torch, distance, params,
+                                                      "(23 d) Mini-ImageNet in bf16", MINI_STEPS)
+        out["mini_imagenet_bf16"].update(seconds=time.time() - t0, k1_dtypes=dict(dtypes))
         shutil.rmtree(os.path.join(tmp, "datasets", "mini_imagenet"))
 
         # (c) CORe50 ni: decode once into the bin cache, then train from it
@@ -1883,6 +1991,240 @@ def run_data_phase(torch, distance, card):
     return out
 
 
+@contextlib.contextmanager
+def conv_dtypes(torch):
+    """Within the block, the set of output dtypes of every Conv2d."""
+    seen = set()
+
+    def hook(module, inputs, out):
+        if isinstance(module, torch.nn.Conv2d):
+            seen.add(out.dtype)
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        yield seen
+    finally:
+        handle.remove()
+
+
+def stored_run(cli_main, parser, flags):
+    """general_main on `flags` in a temporary working directory with --store:
+    (accuracy array [runs, tasks, tasks], the run's printed text)."""
+    with experiment_dir():
+        _, text = quietly(cli_main, parser.parse_args(flags + ["--store", "True",
+                                                               "--save-path", "run.pkl"]))
+        with open(os.path.join("result", "synthetic", "run.pkl"), "rb") as f:
+            acc = pickle.load(f)["acc_array"]
+    return acc, text
+
+
+def throughput(text, aggregate=False):
+    """images/s of the run's 'stream throughput' line (the stacked runner's
+    aggregate line if `aggregate`)."""
+    key = "aggregate stream throughput" if aggregate else "stream throughput"
+    line = [ln for ln in text.splitlines() if key in ln][0]
+    return float(line.split("throughput")[1].split()[0])
+
+
+def resnet_step(torch, name, dtype, device, flops=None):
+    """Figures of one ResNet at nf 64, 32 px: ms a training step (SGD, CE;
+    RESNET_STEPS steps after 3 warm, host clock, synced), the peak device
+    memory of the model, its optimizer, inputs and steps above what was
+    allocated before, and the FLOPs of one step by utils/flops.py (on
+    copies; counted unless `flops` is given: autocast adds only casts,
+    which count nothing)."""
+    from ocl_tpu_torch.models import forward_train, init_model, resnet
+    from ocl_tpu_torch.ops.losses import cross_entropy
+    from ocl_tpu_torch.optim import setup_opt
+    from ocl_tpu_torch.utils.flops import estimate_fn_flops
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = getattr(resnet, name)(10, input_size=32, compute_dtype=dtype)
+    model = init_model(model, torch.Generator().manual_seed(0)).to(device)
+    opt = setup_opt("SGD", model.parameters(), 0.1)
+    g = torch.Generator(device=device).manual_seed(1)
+    x = torch.rand(RESNET_BATCH, 32, 32, 3, device=device, generator=g)
+    y = torch.randint(0, 10, (RESNET_BATCH,), device=device, generator=g)
+
+    def step(model, opt, x, y):
+        opt.zero_grad()
+        cross_entropy(forward_train(model, x), y).backward()
+        opt.step()
+
+    for _ in range(3):
+        step(model, opt, x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RESNET_STEPS):
+        step(model, opt, x, y)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / RESNET_STEPS
+    peak = torch.cuda.max_memory_allocated() - base
+    if flops is None:
+        flops = estimate_fn_flops(step, model, opt, x, y)
+    return {"ms": ms, "peak_gib": peak / 2 ** 30, "flops": flops, "gflop": flops / 1e9,
+            "tflops": flops / (ms / 1e3) / 1e12}
+
+
+def card_vs_cpu(torch, model, x, device):
+    """(max abs, max rel) gap of `model`'s train-mode logits (batch
+    statistics, no gradients) on the card against a CPU copy's, same
+    weights and input."""
+    import copy
+
+    from ocl_tpu_torch.models import forward_train
+
+    cpu = copy.deepcopy(model)
+    with torch.no_grad():
+        got = forward_train(model.to(device), x.to(device)).cpu()
+        want = forward_train(cpu, x)
+    err = (got - want).abs()
+    return err.max().item(), (err / want.abs().clamp_min(1e-6)).max().item(), \
+        bool(torch.allclose(got, want, rtol=1e-3, atol=1e-4))
+
+
+def run_bf16_phase(torch, distance, card, fp32, device):
+    """Phase 23: --compute_dtype bf16 on the card. `fp32` holds the fp32
+    figures this call measured: phase 4's images/s and SV-step profile,
+    phase 21 (a)'s stacked images/s, phase 22 (b)'s Mini-ImageNet task and
+    its bf16 twin."""
+    import tempfile
+
+    from ocl_tpu_torch.config import build_parser, finalize
+    from ocl_tpu_torch.general_main import main as cli_main
+    from ocl_tpu_torch.models import init_model, resnet
+    from ocl_tpu_torch.models.pretrained import ResNet18_pretrained, save_npz
+    from ocl_tpu_torch.tools.kernel_timing import busy_ms, device_events, trace_events
+    from ocl_tpu_torch.utils.profiling import TRACE_FILE
+
+    pairwise_sqdist = distance.pairwise_sqdist
+    parser = build_parser()
+    out = {}
+
+    # (a) ER + ASER through general_main; K1 on fp32 features, convs in bf16
+    pairwise_sqdist.launches = 0
+    with conv_dtypes(torch) as convs, k1_inputs(distance) as k1, k1_shapes(distance) as shapes:
+        t0 = time.time()
+        acc, text = stored_run(cli_main, parser, BF16_RUN_FLAGS)
+        run_s = time.time() - t0
+    launches = pairwise_sqdist.launches
+    latest = float(acc[0, -1, -1])
+    ips = throughput(text)
+    with tempfile.TemporaryDirectory() as tmp:
+        per_step, traced = profile_sv_steps(torch, device, MAIN_FLAGS + BF16, "bf16",
+                                            os.path.join(tmp, "trace"))
+        events = trace_events(os.path.join(tmp, "trace", TRACE_FILE), "kernel")
+    print("[bf16] (a) ER + ASER in bf16 nf 20, phase 4's 2 tasks x 100 steps ({:.1f} s, {}): task 1 "
+          "{:.4f} after training it, {:.1f} images/s (phase 4, fp32: {:.1f}); convolution "
+          "outputs {}; pairwise_sqdist launches {}, inputs (dtype a, dtype b): launches {}, "
+          "shapes (n, m, d, points): launches {}; a profiled SV step {:.0f} launches, {:.3f} ms "
+          "device (phase 4, fp32: {:.0f}, {:.3f} ms)".format(
+              run_s, card, latest, ips, fp32["main_ips"], sorted(str(d) for d in convs),
+              launches, dict(k1), sorted(shapes.items()), per_step["kernels"],
+              per_step["device_ms"], fp32["main_step"]["kernels"],
+              fp32["main_step"]["device_ms"]))
+    require(launches > 0, "bf16 (a): the run launched no pairwise_sqdist kernel")
+    require(set(k1) == {("torch.float32", "torch.float32")},
+            "bf16 (a): pairwise_sqdist got {}".format(dict(k1)))
+    require(convs == {torch.bfloat16}, "bf16 (a): convolution outputs {}".format(convs))
+    require(math.isfinite(latest) and latest > 0.5,
+            "bf16 (a): task 1 read {} after training it".format(latest))
+    out["er_aser"] = {"launches": launches, "shapes": sorted(shapes.items()),
+                      "images_per_s": ips, "latest_acc": latest, **per_step}
+
+    # (f) the trace of TRACE_STEPS more SV steps names K1
+    names = [name for name, *_ in device_events(traced)]
+    k1_events = [name for name, *_ in events if KERNEL in name]
+    print("[bf16] (f) utils/profiling.py::trace of {} SV steps: {} device events ({:.3f} ms with "
+          "a kernel running), {} {} kernels in the Chrome trace ({} kernel events)".format(
+              TRACE_STEPS, len(names), busy_ms(traced), len(k1_events), KERNEL, len(events)))
+    require(any(KERNEL in n for n in names) and k1_events,
+            "bf16 (f): the trace names no {} kernel".format(KERNEL))
+
+    # (b) SCR in bf16
+    with conv_dtypes(torch) as convs:
+        tag, label, flags, n_tasks, prof_steps = SCR_BF16
+        out["scr"], _ = run_family_phase(torch, device, tag, label, flags, n_tasks, prof_steps,
+                                         pairwise_sqdist)
+    require(convs == {torch.bfloat16}, "bf16 (b): convolution outputs {}".format(convs))
+
+    # (c) 3 fused-ER runs stacked in bf16, as phase 21 (a)
+    with conv_dtypes(torch) as convs:
+        t0 = time.time()
+        acc, text = stored_run(cli_main, parser, STACKED_FLAGS + BF16 + [
+            "--synthetic_size", "100", "--parallel_runs", "True"])
+        run_s = time.time() - t0
+    latest = acc[:, -1, -1]
+    ips = throughput(text, aggregate=True)
+    print("[bf16] (c) {} fused-ER runs stacked in bf16, 2 tasks x 50 steps ({:.1f} s, {}): "
+          "{:.1f} images/s aggregate (phase 21 (a), fp32: {:.1f}); each run's task 1 after "
+          "training it {}; convolution outputs {}".format(
+              STACKED_RUNS, run_s, card, ips, fp32["stacked_ips"],
+              [round(float(a), 4) for a in latest], sorted(str(d) for d in convs)))
+    require(convs == {torch.bfloat16}, "bf16 (c): convolution outputs {}".format(convs))
+    require(bool((latest > 0.5).all()), "bf16 (c): a run's task 1 read {}".format(latest))
+    out["stacked"] = {"images_per_s": ips, "latest_acc": latest.tolist()}
+
+    # (d) two runs that load the card, in fp32 and in bf16
+    loads = {}
+    for dtype in ("fp32", "bf16"):
+        params = finalize(parser.parse_args(B128_FLAGS + ["--compute_dtype", dtype]))
+        loads[dtype] = run_data_task(torch, distance, params,
+                                     "(23 d) ER batch 128, 128 memory rows, {}".format(dtype))
+    loads["mini_fp32"], loads["mini_bf16"] = fp32["mini"], fp32["mini_bf16"]
+    for tag in ("", "mini_"):
+        a, b = loads[tag + "fp32"], loads[tag + "bf16"]
+        print("[bf16] (d) {} ({}): images/s {:.1f} fp32, {:.1f} bf16 ({:.2f}x); device ms a "
+              "step {:.3f} / {:.3f} ({:.2f}x); busy {:.1%} / {:.1%}; peak {:.3f} / {:.3f} "
+              "GiB".format(
+                  "Mini-ImageNet task 0, ER + ASER, 84 px" if tag else
+                  "ER, batch 128 + 128 memory rows, 32 px", card,
+                  a["images_per_s"], b["images_per_s"], b["images_per_s"] / a["images_per_s"],
+                  a["device_ms"], b["device_ms"], a["device_ms"] / b["device_ms"], a["busy"],
+                  b["busy"], a["peak_gib"], b["peak_gib"]))
+    require(set(fp32["mini_bf16"]["k1_dtypes"]) == {("torch.float32", "torch.float32")},
+            "bf16 (d): Mini-ImageNet's pairwise_sqdist got {}".format(
+                fp32["mini_bf16"]["k1_dtypes"]))
+    out["loads"] = {k: {f: v[f] for f in ("images_per_s", "device_ms", "busy", "peak_gib")}
+                    for k, v in loads.items()}
+
+    # (e) the ResNet family at nf 64, fp32 and bf16; the card against the CPU
+    rows = {}
+    for name in RESNETS:
+        f = resnet_step(torch, name, "fp32", device)
+        b = resnet_step(torch, name, "bf16", device, f["flops"])
+        rows[name] = {"fp32": f, "bf16": b}
+        print("[bf16] (e) {} nf 64, 32 px, batch {} ({}): a training step {:.2f} ms fp32, {:.2f} "
+              "ms bf16 ({:.2f}x); peak {:.3f} / {:.3f} GiB; {:.3f} GFLOP a step (utils/flops.py), "
+              "{:.2f} / {:.2f} TFLOP/s".format(
+                  name, RESNET_BATCH, card, f["ms"], b["ms"], f["ms"] / b["ms"], f["peak_gib"],
+                  b["peak_gib"], f["gflop"], f["tflops"], b["tflops"]))
+    g = torch.Generator().manual_seed(2)
+    for name in ("ResNet18", "ResNet50"):
+        model = init_model(getattr(resnet, name)(10, input_size=32), g)
+        abs_err, rel_err, close = card_vs_cpu(torch, model, torch.rand(RESNET_BATCH, 32, 32, 3,
+                                                                       generator=g), device)
+        print("[bf16] (e) {} fp32 (TF32 off), card against CPU logits: max_abs_err {:.3e} "
+              "max_rel_err {:.3e}".format(name, abs_err, rel_err))
+        require(close, "bf16 (e): {}'s card logits are not within rtol 1e-3 / atol 1e-4 of the "
+                       "CPU's".format(name))
+        rows.setdefault(name, {})["card_vs_cpu"] = abs_err
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "trunk.npz")
+        save_npz(init_model(resnet.ResNet18(10, input_size=PRETRAINED_SIZE), g), npz)
+        model = ResNet18_pretrained(10, npz, torch.Generator().manual_seed(3), PRETRAINED_SIZE)
+    abs_err, rel_err, close = card_vs_cpu(torch, model, torch.rand(
+        2, PRETRAINED_SIZE, PRETRAINED_SIZE, 3, generator=g), device)
+    print("[bf16] (e) ResNet18_pretrained from a written .npz at {} px, card against CPU logits: "
+          "max_abs_err {:.3e} max_rel_err {:.3e}".format(PRETRAINED_SIZE, abs_err, rel_err))
+    require(close, "bf16 (e): ResNet18_pretrained's card logits are not within rtol 1e-3 / "
+                   "atol 1e-4 of the CPU's")
+    out["resnets"] = rows
+    return out
+
+
 def main():
     script_t0 = time.time()
     import torch
@@ -1937,12 +2279,12 @@ def main():
     pairwise_sqdist.launches = 0
     t0 = time.time()
     with contextlib.redirect_stdout(tee):
-        result = cli_main(build_parser().parse_args(MAIN_FLAGS))
+        result = cli_main(build_parser().parse_args(MAIN_RUN_FLAGS))
     main_s = time.time() - t0
     launches = pairwise_sqdist.launches
     avg_end_acc = float(result[0][0])
     tput = [line for line in tee.buf.getvalue().splitlines() if "stream throughput" in line]
-    print("[main] ER+ASER nf 20, 5 tasks x 100 steps: Avg_End_Acc {:.4f}, pairwise_sqdist "
+    print("[main] ER+ASER nf 20, 2 tasks x 100 steps: Avg_End_Acc {:.4f}, pairwise_sqdist "
           "launches {}, wall {:.1f} s".format(avg_end_acc, launches, main_s))
     print("[main] " + tput[0].strip("-"))
     require(launches > 0, "the main path launched no pairwise_sqdist kernel")
@@ -2044,7 +2386,18 @@ def main():
         require(math.isfinite(abs_err) and rel_err <= MAX_REL and abs_err <= MAX_ABS,
                 "kernel disagrees with plain at the run's shape {}x{}x{}".format(n, m, d))
     family["data"] = {"phase_s": time.time() - t0}
-    print("[data] phase 22: {:.1f} s ({})".format(family["data"]["phase_s"], card))
+    print("[data] phase 22: {:.1f} s ({}), of which Mini-ImageNet in bf16 (23 d) {:.1f} s".format(
+        family["data"]["phase_s"], card, data["mini_imagenet_bf16"]["seconds"]))
+
+    # 23. --compute_dtype bf16: ER + ASER, SCR, stacked ER, two loads, the
+    # ResNet family, a trace
+    t0 = time.time()
+    bf16 = run_bf16_phase(torch, distance, card, {
+        "main_ips": throughput(tee.buf.getvalue()), "main_step": per_step,
+        "stacked_ips": stacked["runs"]["stacked"]["images_per_s"],
+        "mini": data["mini_imagenet"], "mini_bf16": data["mini_imagenet_bf16"]}, device)
+    family["bf16"] = {"phase_s": time.time() - t0}
+    print("[bf16] phase 23: {:.1f} s ({})".format(family["bf16"]["phase_s"], card))
     print("[family] seconds a phase ({}): {}".format(card, ", ".join(
         "{} {:.1f}".format(tag, f["phase_s"]) for tag, f in family.items() if "phase_s" in f)))
 
@@ -2070,7 +2423,14 @@ def main():
                     "runs": STACKED_RUNS, "shapes": stacked["aser"]["kernel_rows"]},
         "data_runs": {tag: {"launches": data[tag]["launches"],
                             "shapes": [[list(k), c] for k, c in data[tag]["shapes"]]}
-                      for tag in ("cifar100", "mini_imagenet")}}]}))
+                      for tag in ("cifar100", "mini_imagenet")},
+        "bf16_runs": {"er_aser": {"launches": bf16["er_aser"]["launches"],
+                                  "launches_a_sv_step": bf16["er_aser"]["k1_launches"],
+                                  "shapes": [[list(k), c] for k, c in bf16["er_aser"]["shapes"]]},
+                      "mini_imagenet": {"launches": data["mini_imagenet_bf16"]["launches"],
+                                        "shapes": [[list(k), c] for k, c in
+                                                   data["mini_imagenet_bf16"]["shapes"]]},
+                      "inputs": "float32"}}]}))
     print("[total] chip_smoke.py {:.1f} s ({})".format(time.time() - script_t0, card))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -139,7 +139,7 @@ def build_parser() -> argparse.ArgumentParser:
     # extensions of ocl_tpu (not in the original reference)
     parser.add_argument("--n_devices", dest="n_devices", default=0, type=int,
                         help="devices to shard eval over in ocl_tpu; the port "
-                             "evaluates on --device")
+                             "evaluates on --device and raises for more than 1")
     parser.add_argument("--synthetic_size", dest="synthetic_size", default=2000, type=int,
                         help="train images per class for the synthetic dataset")
     parser.add_argument("--synthetic_difficulty", dest="synthetic_difficulty",
@@ -173,8 +173,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "port runs each step from Python and has no scan")
     parser.add_argument("--compute_dtype", dest="compute_dtype", default="fp32",
                         choices=["fp32", "bf16"],
-                        help="forward/backward compute precision; the port "
-                             "has fp32 only so far")
+                        help="forward/backward compute precision: bf16 runs "
+                             "the model's forward under torch.autocast to "
+                             "bfloat16 (convolutions and matmuls in bf16; BN "
+                             "statistics, losses, parameters, gradients and "
+                             "optimizer state stay fp32; CN-DPM stays fp32). "
+                             "fp32 is the parity arithmetic.")
     parser.add_argument("--core50_cache", dest="core50_cache", default=True,
                         type=boolean_string,
                         help="CORe50: read and write decoded images in "
@@ -191,7 +195,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "switches (torch.backends.cuda.matmul and "
                              "torch.backends.cudnn) for IEEE fp32 arithmetic, "
                              "'high' sets both, 'default' leaves torch's own "
-                             "defaults (TF32 convs, fp32 matmuls)")
+                             "defaults (TF32 convs, fp32 matmuls). Under "
+                             "--compute_dtype bf16 the model's convs and "
+                             "matmuls run in bf16 and ignore it.")
     parser.add_argument("--device", dest="device", default="cuda",
                         help="torch device the port runs on (cuda, cuda:N or cpu)")
     return parser

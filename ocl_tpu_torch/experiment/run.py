@@ -30,6 +30,10 @@ def check_supported(params):
     if params.agent not in agents:
         raise NotImplementedError("agent {!r} is not ported yet; available: {}".format(
             params.agent, ", ".join(sorted(agents))))
+    if int(getattr(params, "n_devices", 0) or 0) > 1:
+        raise NotImplementedError("--n_devices {}: ocl_tpu's eval sharding over devices is not "
+                                  "ported yet; the port evaluates on --device".format(
+                                      params.n_devices))
 
 
 def _new_agent_and_state(params, run_seed):

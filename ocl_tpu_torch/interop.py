@@ -1,10 +1,14 @@
 """Weights between ocl_tpu pytrees and the port's state dict.
 
-`from_jax(params, batch_stats)` turns the Reduced ResNet-18 or SupConResNet
-pytrees of ocl_tpu (numpy leaves, e.g. after
+`from_jax(params, batch_stats)` turns the pytrees of ocl_tpu's ResNets
+(Reduced ResNet-18, ResNet18-152, SupConResNet; numpy leaves, e.g. after
 `jax.tree_util.tree_map(np.asarray, ...)`) into a state dict for
 `ocl_tpu_torch.models.resnet.ResNet` or `SupConResNet`; `to_jax` does the
-reverse. Conv kernels go HWIO <-> OIHW and Dense kernels [in, out] <->
+reverse. A block's flax submodules are named by kind and order: a
+BasicBlock's Conv3x3_0, Conv3x3_1 and Conv1x1_0 (the shortcut), a
+Bottleneck's Conv1x1_0, Conv3x3_0, Conv1x1_1 and Conv1x1_2 (the shortcut),
+each followed by its BatchNorm_<i>; a Bottleneck is told by its `conv3`
+(Conv1x1_1). Conv kernels go HWIO <-> OIHW and Dense kernels [in, out] <->
 Linear weights [out, in]. SupConResNet's trunk sits under `encoder` in both
 (without a `linear`: ocl_tpu never calls the encoder's head, so Flax never
 creates it), and its head's Dense layers are `head_layers_<i>` in ocl_tpu
@@ -46,28 +50,43 @@ import torch
 _PARAM_TREES = ("prev_params", "running_fisher", "tmp_fisher", "normalized_fisher")
 _FLAGS = ("has_teacher", "has_prev")
 
-# JAX submodule of a stage block <-> port attribute
-_BLOCK_MODS = {"Conv3x3_0": "conv1", "Conv3x3_1": "conv2", "Conv1x1_0": "short_conv",
-               "BatchNorm_0": "bn1", "BatchNorm_1": "bn2", "BatchNorm_2": "short_bn"}
-_BLOCK_MODS_INV = {v: k for k, v in _BLOCK_MODS.items()}
+# JAX submodule of a stage block <-> port attribute, by block kind
+_BLOCK_MODS = {
+    "basic": {"Conv3x3_0": "conv1", "Conv3x3_1": "conv2", "Conv1x1_0": "short_conv",
+              "BatchNorm_0": "bn1", "BatchNorm_1": "bn2", "BatchNorm_2": "short_bn"},
+    "bottleneck": {"Conv1x1_0": "conv1", "Conv3x3_0": "conv2", "Conv1x1_1": "conv3",
+                   "Conv1x1_2": "short_conv", "BatchNorm_0": "bn1", "BatchNorm_1": "bn2",
+                   "BatchNorm_2": "bn3", "BatchNorm_3": "short_bn"},
+}
+_BLOCK_MODS_INV = {kind: {v: k for k, v in mods.items()} for kind, mods in _BLOCK_MODS.items()}
 # BatchNorm leaves: port name <-> (JAX tree, JAX leaf)
 _BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
               "running_mean": ("stats", "mean"), "running_var": ("stats", "var")}
 _BN_LEAVES_INV = {v: k for k, v in _BN_LEAVES.items()}
 
 
-def _jax_entry(key: str):
-    """Port state-dict key -> (JAX tree 'params' or 'stats', path, kind)."""
+def _bottlenecks(keys, sep: str) -> set:
+    """Names of the Bottleneck blocks among state-dict keys (sep ".", the
+    port's "stages.<s>.<b>") or JAX paths joined by "/" ("stages_<s>_<b>")."""
+    mark = ".conv3." if sep == "." else "/Conv1x1_1/"
+    return {k.split(mark)[0].split(sep)[-1] if sep == "/" else
+            ".".join(k.split(mark)[0].split(".")[-3:]) for k in keys if mark in k}
+
+
+def _jax_entry(key: str, bottlenecks=frozenset()):
+    """Port state-dict key -> (JAX tree 'params' or 'stats', path, kind).
+    `bottlenecks` names the port's Bottleneck blocks ("stages.<s>.<b>")."""
     parts = key.split(".")
     if parts[0] == "encoder":
-        tree, path, kind = _jax_entry(key[len("encoder."):])
+        tree, path, kind = _jax_entry(key[len("encoder."):], bottlenecks)
         return tree, ("encoder",) + path, kind
     if parts[0] == "head_layers":
         leaf = "kernel" if parts[2] == "weight" else "bias"
         return "params", ("head_layers_" + parts[1], "Dense_0", leaf), \
             "dense" if leaf == "kernel" else "plain"
     if parts[0] == "stages":
-        prefix = ("stages_{}_{}".format(parts[1], parts[2]), _BLOCK_MODS_INV[parts[3]])
+        block = "bottleneck" if ".".join(parts[:3]) in bottlenecks else "basic"
+        prefix = ("stages_{}_{}".format(parts[1], parts[2]), _BLOCK_MODS_INV[block][parts[3]])
         mod, leaf = parts[3], parts[4]
     else:
         prefix, mod, leaf = (parts[0],), parts[0], parts[1]
@@ -80,10 +99,11 @@ def _jax_entry(key: str):
     return tree, prefix + (jleaf,), "plain"
 
 
-def _port_key(tree: str, path: tuple) -> str:
-    """Inverse of `_jax_entry`."""
+def _port_key(tree: str, path: tuple, bottlenecks=frozenset()) -> str:
+    """Inverse of `_jax_entry`; `bottlenecks` names the JAX Bottleneck blocks
+    ("stages_<s>_<b>")."""
     if path[0] == "encoder":
-        return "encoder." + _port_key(tree, path[1:])
+        return "encoder." + _port_key(tree, path[1:], bottlenecks)
     if path[0].startswith("head_layers_"):
         return "head_layers.{}.{}".format(path[0][len("head_layers_"):],
                                           "weight" if path[-1] == "kernel" else "bias")
@@ -91,7 +111,8 @@ def _port_key(tree: str, path: tuple) -> str:
         return "linear." + ("weight" if path[-1] == "kernel" else "bias")
     if path[0].startswith("stages_"):
         _, s, b = path[0].split("_")
-        prefix = "stages.{}.{}.{}".format(s, b, _BLOCK_MODS[path[1]])
+        block = "bottleneck" if path[0] in bottlenecks else "basic"
+        prefix = "stages.{}.{}.{}".format(s, b, _BLOCK_MODS[block][path[1]])
     else:
         prefix = path[0]
     if path[-1] == "kernel":
@@ -127,19 +148,21 @@ def _leaves(tree, path=()):
 
 def from_jax(params, batch_stats) -> dict:
     """ocl_tpu (params, batch_stats) pytrees -> port state dict."""
+    jax_blocks = _bottlenecks(["/".join(p) for p, _ in _leaves(params)], "/")
     sd = {}
     for tree, leaves in (("params", params), ("stats", batch_stats)):
         for path, value in _leaves(leaves):
-            key = _port_key(tree, path)
-            sd[key] = _to_torch(value, _jax_entry(key)[2])
-    return sd
+            sd[_port_key(tree, path, jax_blocks)] = value
+    blocks = _bottlenecks(sd, ".")
+    return {key: _to_torch(value, _jax_entry(key, blocks)[2]) for key, value in sd.items()}
 
 
 def to_jax(state_dict) -> tuple[dict, dict]:
     """Port state dict -> ocl_tpu (params, batch_stats) pytrees of numpy arrays."""
     out = {"params": {}, "stats": {}}
+    blocks = _bottlenecks(state_dict, ".")
     for key, value in state_dict.items():
-        tree, path, kind = _jax_entry(key)
+        tree, path, kind = _jax_entry(key, blocks)
         node = out[tree]
         for p in path[:-1]:
             node = node.setdefault(p, {})

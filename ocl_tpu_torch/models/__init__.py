@@ -9,6 +9,14 @@ buffers in place. A distillation teacher is a frozen copy of the model
 (`snapshot`), and `functional_forward` runs the model on other tensors
 (MIR's virtual step, GSS's per-sample gradients through `torch.func`).
 
+The compute policy (ocl_tpu's `_policy_in` / `_policy_out`): every helper
+runs a model whose `compute_dtype` is "bf16" under `torch.autocast` to
+bfloat16 on its input's device, so convolutions and matmuls compute in
+bf16, and returns fp32 outputs. Master parameters, their gradients, the BN
+statistics (layers.BatchNorm reduces in fp32) and running buffers, losses
+and optimizer state stay fp32. CN-DPM's mixture has no policy and computes
+in fp32, as in ocl_tpu.
+
 Stacked models (the stacked runs and tuner, experiment/parallel_run.py):
 `Stacked` holds P models of one architecture as [P, ...] tensors, and
 `bind` runs a model's own code on one point's tensors under
@@ -27,17 +35,14 @@ import torch
 from torch.nn.utils.stateless import _reparametrize_module
 
 from ocl_tpu_torch.config import input_size_match, n_classes_match
-from ocl_tpu_torch.models.layers import torch_init_
+from ocl_tpu_torch.models.layers import BatchNorm, torch_init_
 from ocl_tpu_torch.models.ndpm import NDPM
-from ocl_tpu_torch.models.resnet import Reduced_ResNet18, SupConResNet
-
-# Pooled spatial cells of the Reduced ResNet-18 trunk per input resolution;
-# feature dim = cells * nf * 8 -> 160 / 640 / 2560 at nf=20.
-POOLED_CELLS = {32: 1, 84: 4, 128: 16, 50: 1}
-
+from ocl_tpu_torch.models.resnet import Reduced_ResNet18, SupConResNet, pooled_cells
 
 def feature_dim_for(data: str, nf: int = 20) -> int:
-    return POOLED_CELLS[input_size_match[data][0]] * nf * 8
+    """The Reduced ResNet-18 trunk's feature width on `data`'s images:
+    160 / 640 / 2,560 at nf 20 and 32 / 84 / 128 px."""
+    return pooled_cells(input_size_match[data][0]) * nf * 8
 
 
 def setup_architecture(params, generator: torch.Generator, device) -> torch.nn.Module:
@@ -47,40 +52,70 @@ def setup_architecture(params, generator: torch.Generator, device) -> torch.nn.M
     mixture of `params.max_experts` slots (`ndpm.NDPM`)."""
     if params.agent == "CNDPM":
         return NDPM(params, generator).to(device)
-    if getattr(params, "compute_dtype", "fp32") != "fp32":
-        raise NotImplementedError("the port computes in fp32 only so far")
     nf = getattr(params, "nf", 20)
+    cdt = getattr(params, "compute_dtype", "fp32") or "fp32"
     if params.agent in ("SCR", "SCP"):
-        model = SupConResNet(dim_in=feature_dim_for(params.data, nf), head=params.head, nf=nf)
+        model = SupConResNet(dim_in=feature_dim_for(params.data, nf), head=params.head, nf=nf,
+                             compute_dtype=cdt)
     else:
         model = Reduced_ResNet18(n_classes_match[params.data], nf=nf,
-                                 feature_dim=feature_dim_for(params.data, nf))
+                                 feature_dim=feature_dim_for(params.data, nf), compute_dtype=cdt)
+    return init_model(model, generator).to(device)
+
+
+def init_model(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+    """Fresh parameters and BN state for `model`, in place: every Conv2d and
+    Linear weight drawn from `generator` (layers.torch_init_), BN scale 1,
+    bias 0, running mean 0 and variance 1. Returns `model`."""
     torch_init_(model, generator)
-    return model.to(device)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+    return model
+
+
+def param_count(model: torch.nn.Module) -> int:
+    """Number of parameter elements (BN running statistics excluded)."""
+    return sum(p.numel() for p in model.parameters())
+
+
+def _apply(model, fn, x, *args, **kwargs):
+    """`fn(x, ...)` under `model`'s compute policy: as it is for "fp32";
+    for "bf16" under autocast to bfloat16 on x's device, its output cast
+    back to fp32."""
+    if getattr(model, "compute_dtype", "fp32") != "bf16":
+        return fn(x, *args, **kwargs)
+    with torch.autocast(x.device.type, dtype=torch.bfloat16):
+        out = fn(x, *args, **kwargs)
+    return out.float()
 
 
 def forward_train(model, x, w=None):
     """Training-mode forward; returns logits and folds the batch's BN
     statistics into the running buffers. `w` [B] leaves masked rows out of
     those statistics. Gradients flow when the caller has them enabled."""
-    return model(x, train=True, w=w)
+    return _apply(model, model, x, train=True, w=w)
 
 
 @torch.no_grad()
 def forward_eval(model, x):
     """Logits with the BN running statistics; no mutation, no gradients."""
-    return model(x, train=False)
+    return _apply(model, model, x, train=False)
 
 
 @torch.no_grad()
 def features_eval(model, x):
     """Deep features in eval mode (BN running stats, no mutation)."""
-    return model.features(x, train=False)
+    return _apply(model, model.features, x, train=False)
 
 
 def features_train(model, x, w=None):
     """Deep features in train mode; folds the batch's BN statistics."""
-    return model.features(x, train=True, w=w)
+    return _apply(model, model.features, x, train=True, w=w)
 
 
 def functional_forward(model, tensors, x, train=False, w=None, fold=True):
@@ -90,8 +125,8 @@ def functional_forward(model, tensors, x, train=False, w=None, fold=True):
     them. Eval or train mode; gradients flow when enabled. A train-mode fold
     lands in the buffers that `tensors` supplies, else in the model's own;
     `fold=False` makes none."""
-    return torch.func.functional_call(model, tensors, (x,),
-                                      {"train": train, "w": w, "fold": fold})
+    return _apply(model, lambda xb: torch.func.functional_call(
+        model, tensors, (xb,), {"train": train, "w": w, "fold": fold}), x)
 
 
 def snapshot(model):
@@ -108,7 +143,7 @@ def forward_teacher(teacher, x, w=None):
     teacher to eval, so BN normalises with the batch's own statistics (rows
     where `w`); the teacher's running statistics stay as they are and no
     gradient flows."""
-    return teacher(x, train=True, w=w, fold=False)
+    return _apply(teacher, teacher, x, train=True, w=w, fold=False)
 
 
 @dataclass

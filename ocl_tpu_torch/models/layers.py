@@ -83,15 +83,44 @@ class BatchNorm(nn.Module):
         return out.to(x.dtype)
 
 
-def Conv3x3(in_planes: int, planes: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(in_planes, planes, 3, stride=stride, padding=1, bias=False)
+def _autocast_dtype(x):
+    """The dtype autocast computes x's device's convolutions and matmuls in,
+    or None outside autocast."""
+    device = x.device.type
+    return torch.get_autocast_dtype(device) if torch.is_autocast_enabled(device) else None
 
 
-def Conv1x1(in_planes: int, planes: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(in_planes, planes, 1, stride=stride, padding=0, bias=False)
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that honours autocast under torch.func.vmap too: there
+    functorch's batching rule dispatches the convolution below autocast,
+    which would leave it in fp32, so the layer casts its input and weight
+    itself, as autocast does."""
+
+    def forward(self, x):
+        dtype = _autocast_dtype(x)
+        if dtype is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return self._conv_forward(x.to(dtype), self.weight.to(dtype), bias)
 
 
-TorchLinear = nn.Linear
+class TorchLinear(nn.Linear):
+    """nn.Linear that honours autocast under torch.func.vmap, as Conv2d."""
+
+    def forward(self, x):
+        dtype = _autocast_dtype(x)
+        if dtype is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+
+
+def Conv3x3(in_planes: int, planes: int, stride: int = 1) -> Conv2d:
+    return Conv2d(in_planes, planes, 3, stride=stride, padding=1, bias=False)
+
+
+def Conv1x1(in_planes: int, planes: int, stride: int = 1) -> Conv2d:
+    return Conv2d(in_planes, planes, 1, stride=stride, padding=0, bias=False)
 
 
 def torch_init_(module: nn.Module, generator: torch.Generator) -> None:

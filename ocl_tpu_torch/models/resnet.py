@@ -1,13 +1,19 @@
-"""Reduced ResNet-18 for online continual learning (counterpart of
+"""The ResNet family for online continual learning (counterpart of
 ocl_tpu/models/resnet.py).
 
-BasicBlock [2,2,2,2], nf=20, bias'd linear head; feature dim 160 at 32x32.
-`features` and `logits` stay separate: the ASER KNN-SV scoring and NCM eval
-consume `features`. Inputs are NHWC; `features` permutes them to NCHW.
-Pooled features are flattened in NHWC order, the JAX package's, so its Dense
-kernel maps onto `linear` by a transpose alone (ocl_tpu_torch/interop.py).
-SupConResNet (SCR's model) is the same trunk under a projection head. The
-other ResNets are not ported yet.
+Reduced ResNet-18: BasicBlock [2,2,2,2], nf=20, bias'd linear head; feature
+dim 160 at 32x32. `features` and `logits` stay separate: the ASER KNN-SV
+scoring and NCM eval consume `features`. Inputs are NHWC; `features`
+permutes them to NCHW. Pooled features are flattened in NHWC order, the JAX
+package's, so its Dense kernel maps onto `linear` by a transpose alone
+(ocl_tpu_torch/interop.py). SupConResNet (SCR's model) is the same trunk
+under a projection head. ResNet18-152 are the full-width (nf 64) trunks,
+ResNet50-152 of Bottleneck blocks (expansion 4); flax infers the head's
+width at init, so these take the input size and size it by `pooled_cells`.
+
+`compute_dtype` ("fp32" or "bf16") is the model's compute policy, read by
+the apply helpers of models/__init__.py, which run the forward under
+autocast for "bf16".
 """
 
 from __future__ import annotations
@@ -43,14 +49,60 @@ class BasicBlock(nn.Module):
         return F.relu(out + x)
 
 
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = Conv1x1(in_planes, planes)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = Conv3x3(planes, planes, stride)
+        self.bn2 = BatchNorm(planes)
+        self.conv3 = Conv1x1(planes, self.expansion * planes)
+        self.bn3 = BatchNorm(self.expansion * planes)
+        self.has_shortcut = stride != 1 or in_planes != self.expansion * planes
+        if self.has_shortcut:
+            self.short_conv = Conv1x1(in_planes, self.expansion * planes, stride)
+            self.short_bn = BatchNorm(self.expansion * planes)
+
+    def forward(self, x, train: bool, w=None, fold: bool = True):
+        out = F.relu(self.bn1(self.conv1(x), train, w, fold))
+        out = F.relu(self.bn2(self.conv2(out), train, w, fold))
+        out = self.bn3(self.conv3(out), train, w, fold)
+        if self.has_shortcut:
+            x = self.short_bn(self.short_conv(x), train, w, fold)
+        return F.relu(out + x)
+
+
+_BLOCKS = {"basic": BasicBlock, "bottleneck": Bottleneck}
+
+
+def pooled_cells(input_size: int, pool_window: int = 4) -> int:
+    """Cells the trunk pools an input_size x input_size image to: stages 2-4
+    open with a stride-2 convolution (3x3 at padding 1, or 1x1), which takes
+    a side s to ceil(s / 2), and the floor-mode pooling drops the remainder
+    (1 at 32 and 50 px, 4 at 84, 16 at 128, 49 at 224)."""
+    side = input_size
+    for _ in range(3):
+        side = (side + 1) // 2
+    return (side // pool_window) ** 2
+
+
 class ResNet(nn.Module):
-    """GEM/MIR-style ResNet trunk + linear head (reference: models/resnet.py:71-109)."""
+    """GEM/MIR-style ResNet trunk + linear head (reference: models/resnet.py:71-109).
+
+    `block` is "basic" or "bottleneck". The head takes `feature_dim` inputs,
+    by default the trunk's width at one pooled cell (a 32- or 50-pixel
+    input)."""
 
     def __init__(self, num_blocks: Sequence[int], num_classes: int | None, nf: int = 20,
-                 bias: bool = True, pool_window: int = 4, in_channels: int = 3,
+                 block: str = "basic", bias: bool = True, pool_window: int = 4,
+                 compute_dtype: str = "fp32", in_channels: int = 3,
                  feature_dim: int | None = None):
         super().__init__()
         self.pool_window = pool_window
+        self.compute_dtype = compute_dtype
+        block_cls = _BLOCKS[block]
         self.conv1 = Conv3x3(in_channels, nf)
         self.bn1 = BatchNorm(nf)
         stages = []
@@ -59,8 +111,8 @@ class ResNet(nn.Module):
             planes = nf * (2 ** stage)
             blocks = []
             for i in range(n):
-                blocks.append(BasicBlock(in_planes, planes, stride if i == 0 else 1))
-                in_planes = planes * BasicBlock.expansion
+                blocks.append(block_cls(in_planes, planes, stride if i == 0 else 1))
+                in_planes = planes * block_cls.expansion
             stages.append(nn.ModuleList(blocks))
         self.stages = nn.ModuleList(stages)
         # no head for num_classes None: SupConResNet's encoder, whose head
@@ -86,8 +138,35 @@ class ResNet(nn.Module):
         return self.logits(self.features(x, train, w, fold))
 
 
-def Reduced_ResNet18(nclasses, nf=20, bias=True, feature_dim=None):
-    return ResNet([2, 2, 2, 2], nclasses, nf, bias, feature_dim=feature_dim)
+def Reduced_ResNet18(nclasses, nf=20, bias=True, feature_dim=None, compute_dtype="fp32"):
+    return ResNet([2, 2, 2, 2], nclasses, nf, "basic", bias, compute_dtype=compute_dtype,
+                  feature_dim=feature_dim)
+
+
+def _full(num_blocks, block, nclasses, nf, bias, input_size, compute_dtype):
+    width = nf * 8 * _BLOCKS[block].expansion
+    return ResNet(num_blocks, nclasses, nf, block, bias, compute_dtype=compute_dtype,
+                  feature_dim=pooled_cells(input_size) * width)
+
+
+def ResNet18(nclasses, nf=64, bias=True, input_size=32, compute_dtype="fp32"):
+    return _full([2, 2, 2, 2], "basic", nclasses, nf, bias, input_size, compute_dtype)
+
+
+def ResNet34(nclasses, nf=64, bias=True, input_size=32, compute_dtype="fp32"):
+    return _full([3, 4, 6, 3], "basic", nclasses, nf, bias, input_size, compute_dtype)
+
+
+def ResNet50(nclasses, nf=64, bias=True, input_size=32, compute_dtype="fp32"):
+    return _full([3, 4, 6, 3], "bottleneck", nclasses, nf, bias, input_size, compute_dtype)
+
+
+def ResNet101(nclasses, nf=64, bias=True, input_size=32, compute_dtype="fp32"):
+    return _full([3, 4, 23, 3], "bottleneck", nclasses, nf, bias, input_size, compute_dtype)
+
+
+def ResNet152(nclasses, nf=64, bias=True, input_size=32, compute_dtype="fp32"):
+    return _full([3, 8, 36, 3], "bottleneck", nclasses, nf, bias, input_size, compute_dtype)
 
 
 class SupConResNet(nn.Module):
@@ -97,9 +176,11 @@ class SupConResNet(nn.Module):
     -> feat_dim), "linear" (dim_in -> feat_dim) or "None" (the encoder's
     features); `features` are the encoder's features."""
 
-    def __init__(self, dim_in: int = 160, head: str = "mlp", feat_dim: int = 128, nf: int = 20):
+    def __init__(self, dim_in: int = 160, head: str = "mlp", feat_dim: int = 128, nf: int = 20,
+                 compute_dtype: str = "fp32"):
         super().__init__()
-        self.encoder = ResNet([2, 2, 2, 2], None, nf)
+        self.compute_dtype = compute_dtype
+        self.encoder = ResNet([2, 2, 2, 2], None, nf, compute_dtype=compute_dtype)
         if head == "linear":
             layers = [TorchLinear(dim_in, feat_dim)]
         elif head == "mlp":

@@ -21,13 +21,16 @@ device times by name from a `torch.profiler` trace, as a cross-check, and
 streams overlap, so their sum can exceed the wall time. Both read the
 trace's raw device events, the ones `prof.events()` lists with device type
 CUDA: `prof.events()` first builds the tree of every host op, which takes
-tens of seconds for a trace of 10^5 events.
+tens of seconds for a trace of 10^5 events. `trace_events` reads a Chrome
+trace file's events.
 
-Every function here needs a CUDA device; nothing falls back to the CPU.
+The timing functions need a CUDA device (nothing falls back to the CPU); the
+readers read the trace they are given.
 """
 
 from __future__ import annotations
 
+import json
 import statistics
 import time
 
@@ -127,6 +130,17 @@ def device_events(prof):
     return [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
             if e.device_type() == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
+def trace_events(path, category=None):
+    """[(name, category, start us, duration us)] of the complete events of a
+    Chrome trace file (`utils/profiling.py::trace` writes one), those of
+    `category` alone if given ("cpu_op" for host ops, "kernel" for CUDA
+    kernels)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], e.get("cat"), e["ts"], e["dur"]) for e in events
+            if e.get("ph") == "X" and (category is None or e.get("cat") == category)]
 
 
 def kernel_times(prof):

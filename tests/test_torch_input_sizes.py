@@ -1,9 +1,9 @@
 """The models at the real datasets' input sizes against ocl_tpu, on the same
 weights and inputs: 84 px (Mini-ImageNet, 100 classes), 128 px (CORe50, 50
 classes) and 50 px (OpenLORIS, 69 classes). The trunk pools to 4, 16 and 1
-cells there (`POOLED_CELLS`), so its feature width is 4, 16 and 1 times the
-32-pixel one, and `interop` maps ocl_tpu's NHWC-flattened head onto the
-port's by a transpose alone.
+cells there (`models/resnet.py::pooled_cells`), so its feature width is 4,
+16 and 1 times the 32-pixel one, and `interop` maps ocl_tpu's
+NHWC-flattened head onto the port's by a transpose alone.
 
 * Reduced ResNet-18: `setup_architecture` and `feature_dim_for`, the
   parameter tree against ocl_tpu's `init_model`, the train-mode forward

@@ -232,7 +232,7 @@ def test_cli_error_analysis_writes_confusion(tmp_path):
     assert set(correct_lb) == {0, 1} and set(predict_lb) <= {-1, 0, 1}
 
 
-@pytest.mark.parametrize("flags", [dict(compute_dtype="bf16")])
+@pytest.mark.parametrize("flags", [dict(n_devices=2)])
 def test_unported_options_raise(flags):
     from ocl_tpu_torch.experiment.run import multiple_run
 
