@@ -141,7 +141,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                time); (c) CORe50 ni
                (paths, LUP and labels pickles, 4,000 JPEGs at 128 px
                decoded once into the bin cache, then read from it) with
-               config/general_1.yml and er_1k.yml, task 0 of 8. (b) and (c)
+               config/general_1.yml and er_1k.yml, task 0 of 8, on
+               deterministic algorithms (its accuracy spreads widely on the
+               default ones: PERF.md §6). (b) and (c)
                print images/s, launches, device ms and busy share a step
                over DATA_PROFILE_STEPS profiled steps, the test sets' size
                resident on the card, peak device memory, and must read
@@ -181,8 +183,31 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                atol 1e-4; (f) utils/profiling.py::trace of 3 more SV steps of
                (a) must name K1's kernel, among its device events and in the
                Chrome trace file.
+  24. dp     — --n_devices: two ranks of torch.distributed sharing cuda:0
+               over gloo (NCCL refuses two ranks on one GPU), at nf 20 with
+               TF32 off: (a) general_main --n_devices 2, ER + ASER, 2 tasks
+               x 50 steps, with its layout line; rank 0's final state,
+               checkpointed, evaluated by one process on every test row must
+               give the fanned-out counts, or else the smallest top-2 logit
+               margin must be under 1e-4; (b) 12 data-parallel ER + ASER
+               steps over a slot-sharded buffer of 1,000 (batch 10 split
+               5/5, 10 retrieved rows): K1 launches on every rank and agrees
+               with its plain version at the shapes it was given (max abs
+               error <= 1e-3, and <= 1e-5 of the largest ||a||^2 + ||b||^2,
+               the terms it cancels: these features nearly coincide), the ranks'
+               parameter checksums agree after every step, the first step
+               is held against one rank's step (parameters within 1e-3,
+               current_index and buffer labels equal); images/s,
+               collectives and device ms a step per rank; (c)-(d)
+               tools/dryrun.py's patterns at nf 20 (SCR, GSS, the CN-DPM
+               wake step, the softmax and NCM fan-out on SCR's model, the
+               grid tune): finite losses, ranks that agree, the NCM fan-out
+               equal to the unsharded eval; (e) phase 21 (a)'s 3 stacked
+               fused-ER runs dealt to the 2 ranks, each run above 0.5; (f)
+               the DP ER step under NCCL at world size 1, and NCCL's answer
+               to two ranks on one card.
 Then one JSON line of kernel figures (K1's with its batched figures, the
-data runs' and the bf16 runs' launches and shapes), the script's total
+data runs', the bf16 runs' and the DP runs' launches and shapes), the script's total
 seconds, and last the result line {"ok": true, "device": {...}}.
 """
 
@@ -284,6 +309,9 @@ ASER_RECIPE = "config_CVPR/agent/aser/aser_1k_cifar100.yml"
 ER_RECIPE = "config/agent/er/er_1k.yml"
 OFFLINE_RECIPE = "config/agent/er/offline.yml"
 RESUME_GAP = 0.02
+# phase 18's stream: 120 images a class, 36 steps a task (cut from 200 for the
+# script's time, phase 24 having joined it)
+RESUME_SIZE = 120
 # phase 21: stacked runs and the stacked tuner. (a) fused ER from er_1k's
 # flags, 3 runs of 2 tasks x 50 steps, stacked and sequential; (b) ER +
 # ASER stacked, R = 3; the batched kernel at P points
@@ -1002,7 +1030,7 @@ def resume_sequence(torch, pairwise_sqdist):
         general = cut_recipe(GENERAL, "general.yml", cuts)
         general_ckpt = cut_recipe(GENERAL, "general_ckpt.yml", cuts, [("ckpt_dir", "ckpt")])
         data = cut_recipe(SYNTHETIC.format("nc"), "data.yml", {"num_tasks: 5": "num_tasks: 3"},
-                          [("synthetic_size", 200)])
+                          [("synthetic_size", RESUME_SIZE)])
 
         def args(general_file):
             return build_parser().parse_args(["--general", general_file, "--data", data, "--agent",
@@ -1053,8 +1081,8 @@ def run_resume_phase(torch, pairwise_sqdist, card):
     from ocl_tpu_torch.tools.spread import deterministic
 
     print("[resume] {} + {} + {}, cut: num_runs 5 -> 1, num_tasks 5 -> 3, synthetic_size "
-          "2000 -> 200 a class (60 steps a task); nf 20, batch 10".format(
-              GENERAL, SYNTHETIC.format("nc"), ASER_RECIPE))
+          "2000 -> {} a class ({} steps a task); nf 20, batch 10".format(
+              GENERAL, SYNTHETIC.format("nc"), ASER_RECIPE, RESUME_SIZE, RESUME_SIZE * 3 // 10))
     with deterministic() as nondeterministic:
         det = resume_sequence(torch, pairwise_sqdist)
     want, got, verified = det["want"], det["got"], det["verified"]
@@ -1848,6 +1876,7 @@ def run_data_phase(torch, distance, card):
     from ocl_tpu_torch.data import continuum, prepare_test_loaders
     from ocl_tpu_torch.general_main import main as cli_main
     from ocl_tpu_torch.main_config import build_parser, main as config_main
+    from ocl_tpu_torch.tools.spread import deterministic
 
     seed = cli_parser().get_default("seed")
     pairwise_sqdist = distance.pairwise_sqdist
@@ -1940,7 +1969,13 @@ def run_data_phase(torch, distance, card):
                   GENERAL, CORE50_DATA, ER_RECIPE, CORE50_TRAIN, CORE50_TEST,
                   CORE50_TRAIN + CORE50_TEST, write_s, decode_s,
                   (CORE50_TRAIN + CORE50_TEST) / decode_s))
-        out["core50"] = run_data_task(torch, distance, params, "(c) CORe50 ni")
+        # on deterministic algorithms: on the default ones the task's accuracy
+        # with running BN statistics spreads from 0.15 to 1.00 between runs of
+        # one seed (2 of 16 <= 0.5, each >= 0.97 on batch statistics; PERF.md §6)
+        with deterministic() as nondeterministic:
+            out["core50"] = run_data_task(torch, distance, params, "(c) CORe50 ni")
+        print("[data] (c) ran on deterministic algorithms (cuDNN and torch); ops without one: "
+              "{}".format(sorted(nondeterministic) or "none"))
         out["core50"].update(decode_s=decode_s)
         require(out["core50"]["launches"] == 0, "data: plain ER launched pairwise_sqdist")
 
@@ -2225,6 +2260,349 @@ def run_bf16_phase(torch, distance, card, fp32, device):
     return out
 
 
+# phase 24: --n_devices on one card, two ranks sharing cuda:0 over gloo (NCCL
+# refuses two ranks on one GPU). (a) general_main --n_devices 2, ER + ASER,
+# MAIN_FLAGS cut to 2 tasks x 50 steps; (b) the data-parallel ER + ASER step
+# over a slot-sharded buffer at nf 20, batch 10 split 5/5, 10 retrieved rows,
+# from a memory of 1,000 filled from task 0: DP_STEPS steps, the first beside
+# one rank's; (c)-(d) tools/dryrun.py's patterns at nf 20 (SCR, GSS, the
+# CN-DPM wake step, the softmax and NCM fan-out on SCR's model, the grid
+# tune); (e) phase 21 (a)'s 3 stacked fused-ER runs dealt to 2 ranks; (f) the
+# DP ER step under NCCL at world size 1, and NCCL's answer to two ranks on
+# one card
+DP_RANKS = 2
+DP_CLI_FLAGS = MAIN_FLAGS + ["--num_tasks", "2", "--synthetic_size", "100",
+                             "--n_devices", str(DP_RANKS)]
+DP_FLAGS = MAIN_FLAGS + ["--num_tasks", "2"]
+DP_STEPS = 12
+DP_PROFILE_STEPS = 4
+DP_DRAW_SEED = 24
+MAX_MARGIN = 1e-4
+
+
+def dp_setup(torch, device, flags):
+    """Phase 24 (b)'s agent, state, ctx, batches and draws, alike in every
+    process: the weights of init_state(seed), a memory of 1,000 drawn from
+    task 0 (so every step takes ASER's SV paths), DP_STEPS batches of task 1,
+    and each step's draws from a generator of its own."""
+    import numpy as np
+
+    from ocl_tpu_torch.config import build_parser, finalize
+    from ocl_tpu_torch.data import continuum
+    from ocl_tpu_torch.registry import agents
+
+    params = finalize(build_parser().parse_args(flags + ["--device", str(device)]))
+    np.random.seed(params.seed)
+    stream = continuum(params.data, params.cl_type, params)
+    np.random.seed(params.seed)
+    stream.new_run()
+    (x0, y0, _), (x1, y1, _) = next(stream), next(stream)
+    agent = agents["ER"](params)
+    state = agent.init_state(params.seed)
+    buf = state.buffer
+    pick = np.random.RandomState(0).permutation(len(y0))[: buf.mem_size]
+    buf.imgs.copy_(torch.from_numpy(x0[pick]))
+    buf.labels.copy_(torch.from_numpy(y0[pick].astype(np.int64)))
+    buf.class_counts.copy_(torch.bincount(buf.labels, minlength=buf.class_counts.shape[0]))
+    buf.current_index, buf.n_seen_so_far = buf.mem_size, len(y0)
+    agent.task_seen, agent.old_labels = 1, sorted(set(int(v) for v in y0))
+    ctx = agent.before_train(y1)
+    b = params.batch
+    xs = torch.from_numpy(x1[: DP_STEPS * b]).reshape(DP_STEPS, b, *x1.shape[1:]).to(device)
+    ys = torch.from_numpy(y1[: DP_STEPS * b].astype(np.int64)).reshape(DP_STEPS, b).to(device)
+    g = torch.Generator(device=device).manual_seed(DP_DRAW_SEED)
+    draws = [agent.draw(g, b) for _ in range(DP_STEPS)]
+    return agent, state, ctx, xs, ys, draws
+
+
+def model_checksum(torch, model):
+    return float(sum(t.double().sum() for t in model.state_dict().values()))
+
+
+def scaled_errors(torch, a, b, got, want):
+    """(max abs error, max abs error over the largest ||a_i||^2 + ||b_j||^2):
+    K1 computes ||a||^2 + ||b||^2 - 2 a.b, so its rounding scales with the
+    terms it cancels, not with the distance, which for features that nearly
+    coincide is far smaller and makes a relative error meaningless."""
+    err = (got - want).abs().max().item()
+    scale = (a.square().sum(1).max() + b.square().sum(1).max()).item()
+    return err, err / max(scale, torch.finfo(torch.float32).tiny)
+
+
+def sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def dp_rank(flags, nf, stacked_flags, workdir):
+    """Phase 24 (b)-(e) in one rank: the DP ER + ASER steps of `flags`,
+    their figures and checks, K1 against its plain version at the shapes
+    they gave it, tools/dryrun.py's patterns at base width `nf`, then the
+    stacked runs of `stacked_flags` dealt to the ranks, in `workdir`."""
+    import torch
+
+    from ocl_tpu_torch import parallel
+    from ocl_tpu_torch.ops import distance, knn_sv
+    from ocl_tpu_torch.parallel import dp
+    from ocl_tpu_torch.parallel.sharded_buffer import gather_buffer, shard_buffer
+    from ocl_tpu_torch.tools import dryrun
+    from ocl_tpu_torch.tools.kernel_timing import kernel_times
+    from ocl_tpu_torch.tools.spread import deterministic
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    mesh = parallel.get_mesh()
+    agent, state, ctx, xs, ys, draws = dp_setup(torch, mesh.device, flags)
+    state.buffer = shard_buffer(state.buffer, mesh)
+    task = dp.make_dp_train_task(agent, mesh)
+    shapes = {}
+    kernel = knn_sv.pairwise_sqdist
+
+    def recording(a, b):
+        shapes.setdefault((a.shape[0], b.shape[0], a.shape[1]), (a.clone(), b.clone()))
+        return kernel(a, b)
+
+    knn_sv.pairwise_sqdist = recording
+    out = {"rank": mesh.rank}
+    sums = []
+    distance.pairwise_sqdist.launches = 0
+    with deterministic():
+        state, m = task(state, ctx, xs[:1], ys[:1], draws[:1])
+    whole = gather_buffer(state.buffer)
+    out["one"] = {"sd": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+                  "labels": whole.labels.cpu().clone(), "current_index": whole.current_index,
+                  "loss": float(m["loss"][0])}
+    sums.append(model_checksum(torch, state.model))
+    timed = DP_STEPS - 1 - DP_PROFILE_STEPS
+    sync(torch, mesh.device)
+    calls, secs, t0 = mesh.calls, mesh.seconds, time.perf_counter()
+    for i in range(1, 1 + timed):
+        state, m = task(state, ctx, xs[i:i + 1], ys[i:i + 1], draws[i:i + 1])
+        sums.append(model_checksum(torch, state.model))
+    sync(torch, mesh.device)
+    wall = time.perf_counter() - t0
+    out["images_per_s"] = timed * xs.shape[1] / wall
+    out["collectives"] = (mesh.calls - calls) / timed
+    out["collective_ms"] = (mesh.seconds - secs) * 1e3 / timed
+    out["step_ms"] = wall * 1e3 / timed
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(1 + timed, DP_STEPS):
+            state, m = task(state, ctx, xs[i:i + 1], ys[i:i + 1], draws[i:i + 1])
+        sync(torch, mesh.device)
+    kernels = kernel_times(prof)
+    k1 = [us for name, us in kernels if KERNEL in name]
+    out["launches"] = distance.pairwise_sqdist.launches
+    knn_sv.pairwise_sqdist = kernel
+    sums.append(model_checksum(torch, state.model))
+    out["profile"] = {"kernels": len(kernels) / DP_PROFILE_STEPS,
+                      "device_ms": sum(us for _, us in kernels) / 1e3 / DP_PROFILE_STEPS,
+                      "k1_launches": len(k1) / DP_PROFILE_STEPS,
+                      "k1_device_ms": sum(k1) / 1e3 / DP_PROFILE_STEPS}
+    every = mesh.all_gather(torch.tensor([sums], dtype=torch.float64, device=mesh.device))
+    out["checksums_agree"] = bool((every == every[0]).all())
+    out["final_loss"] = float(m["loss"][-1])
+    # K1 against its plain version at every shape the DP steps gave it
+    # (these launches come after the count was read)
+    errs = []
+    for (n, mm, d), (a, b) in sorted(shapes.items()):
+        got = distance.pairwise_sqdist(a, b)
+        sync(torch, mesh.device)
+        errs.append(((n, mm, d),) + scaled_errors(torch, a, b, got,
+                                                  distance.pairwise_sqdist_plain(a, b)))
+    out["kernel_checks"] = errs
+    out["dryrun"] = dryrun.run_patterns(nf)
+
+    from ocl_tpu_torch.config import build_parser
+    from ocl_tpu_torch.general_main import main as cli_main
+
+    os.chdir(workdir)
+    t0 = time.time()
+    cli_main(build_parser().parse_args(stacked_flags + [
+        "--synthetic_size", "100", "--parallel_runs", "True", "--n_devices", str(mesh.size),
+        "--store", "True", "--save-path", "dp_stacked.pkl"]))
+    mesh.barrier()   # rank 0 has written the accuracies
+    with open("result/synthetic/dp_stacked.pkl", "rb") as f:
+        acc = pickle.load(f)["acc_array"]
+    out["stacked"] = {"seconds": time.time() - t0, "end_acc": acc[:, -1].mean(axis=1).tolist()}
+    return out
+
+
+def nccl_rank(flags):
+    """Phase 24 (f): two DP steps of fused ER under the group's backend."""
+    import torch
+
+    from ocl_tpu_torch import parallel
+    from ocl_tpu_torch.parallel import dp
+    from ocl_tpu_torch.parallel.sharded_buffer import shard_buffer
+
+    mesh = parallel.get_mesh()
+    agent, state, ctx, xs, ys, draws = dp_setup(
+        torch, mesh.device, flags + ["--update", "random", "--retrieve", "random"])
+    state.buffer = shard_buffer(state.buffer, mesh)
+    state, m = dp.make_dp_train_task(agent, mesh)(state, ctx, xs[:2], ys[:2], draws[:2])
+    return {"backend": mesh.backend, "loss": m["loss"].tolist(),
+            "checksum": model_checksum(torch, state.model)}
+
+
+@contextlib.contextmanager
+def launch_limit(seconds):
+    """Within the block, a launch of ranks that outlasts `seconds` stops
+    them and raises (parallel/mesh.py's LAUNCH_TIMEOUT_S)."""
+    from ocl_tpu_torch.parallel import mesh
+
+    old, mesh.LAUNCH_TIMEOUT_S = mesh.LAUNCH_TIMEOUT_S, seconds
+    try:
+        yield
+    finally:
+        mesh.LAUNCH_TIMEOUT_S = old
+
+
+def top2_margin(torch, logits):
+    """The gap between each row's two largest logits."""
+    top = logits.topk(2, dim=1).values
+    return top[:, 0] - top[:, 1]
+
+
+def run_dp_phase(torch, card, device, cli_flags=DP_CLI_FLAGS, dp_flags=DP_FLAGS,
+                 stacked_flags=STACKED_FLAGS, nf=20):
+    """Phase 24 (a)-(f) (see DP_CLI_FLAGS' comment); returns its figures.
+    The flags and `nf` are the card's; a rehearsal on the CPU gives its own
+    (and leaves (f), which needs NCCL, to the card)."""
+    import numpy as np
+
+    from ocl_tpu_torch import parallel
+    from ocl_tpu_torch.config import build_parser, finalize
+    from ocl_tpu_torch.data import continuum, prepare_test_loaders
+    from ocl_tpu_torch.general_main import main as cli_main
+    from ocl_tpu_torch.models import forward_eval
+    from ocl_tpu_torch.registry import agents
+    from ocl_tpu_torch.tools.spread import deterministic
+    from ocl_tpu_torch.utils import checkpoint
+
+    out = {}
+    # (a) the CLI; then rank 0's final state, from its checkpoint, evaluated
+    # by one process on every test row
+    t0 = time.time()
+    with experiment_dir() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        flags = cli_flags + ["--store", "True", "--save-path", "dp.pkl", "--ckpt_dir", ckpt]
+        with launch_limit(600):
+            res, text = quietly(cli_main, build_parser().parse_args(flags))
+        layout = [ln for ln in text.splitlines() if ln.startswith("[parallel]")]
+        with open("result/synthetic/dp.pkl", "rb") as f:
+            acc = pickle.load(f)["acc_array"]
+        params = finalize(build_parser().parse_args(flags[:-2] + ["--n_devices", "0"]))
+        np.random.seed(params.seed)
+        stream = continuum(params.data, params.cl_type, params)
+        np.random.seed(params.seed)
+        stream.new_run()
+        loaders = prepare_test_loaders(stream.test_data(), params, device)
+        agent = agents["ER"](params)
+        state, meta = checkpoint.load_checkpoint(ckpt, agent.init_state(params.seed))
+        checkpoint.restore_agent_meta(agent, meta["agent"])
+        one = agent.evaluate(state, loaders)
+        totals = np.array([int(m.sum()) for _, _, m in loaders])
+        fan = np.rint(acc[0, -1] * totals).astype(int)
+        single = np.rint(one * totals).astype(int)
+        margin = min(float(top2_margin(torch, forward_eval(state.model, xb))[mb].min())
+                     for x, _, m in loaders for xb, mb in zip(x, m))
+    out["cli"] = {"seconds": time.time() - t0, "avg_end_acc": float(res[0][0]),
+                  "fan_out_counts": fan.tolist(), "one_rank_counts": single.tolist(),
+                  "smallest_margin": margin}
+    print("[dp] (a) general_main --n_devices {}, ER + ASER nf {}, 2 tasks x 50 steps ({}): {}; "
+          "Avg_End_Acc {:.4f}; final eval's correct counts fanned out {} / one rank on the same "
+          "state {}; smallest top-2 logit margin {:.3e}; {:.1f} s".format(
+              DP_RANKS, nf, card, layout[0] if layout else "no layout line", float(res[0][0]),
+              fan.tolist(), single.tolist(), margin, out["cli"]["seconds"]))
+    where = "cuda:0 x{}".format(DP_RANKS) if device.type == "cuda" else "on the CPU"
+    require(layout and "backend gloo" in layout[0] and where in layout[0],
+            "the CLI printed no layout line of {} ranks ({}) over gloo".format(DP_RANKS, where))
+    require(np.array_equal(fan, single) or margin < MAX_MARGIN,
+            "the fanned-out counts {} differ from one rank's {} with no logit margin under "
+            "{}".format(fan.tolist(), single.tolist(), MAX_MARGIN))
+    require(math.isfinite(float(res[0][0])) and acc[0, -1, -1] > 0.5,
+            "the --n_devices run's last task reads {}".format(acc[0, -1]))
+
+    # (b)-(e) the DP step, beside one rank's step; the dry run's patterns;
+    # the stacked runs dealt to the ranks
+    t0 = time.time()
+    with experiment_dir() as tmp, launch_limit(600):
+        ranks = parallel.launch(dp_rank, (dp_flags, nf, stacked_flags, tmp), DP_RANKS,
+                                device.type)
+    agent, state, ctx, xs, ys, draws = dp_setup(torch, device, dp_flags)
+    with deterministic():
+        agent.step(state, ctx, xs[0], ys[0], draws=draws[0])
+    sd = state.model.state_dict()
+    r0 = ranks[0]["one"]
+    diff = max(float((sd[k].cpu() - r0["sd"][k]).abs().max()) for k in sd)
+    labels_equal = torch.equal(state.buffer.labels.cpu(), r0["labels"])
+    out["step"] = {"param_diff": diff, "ranks": [{k: r[k] for k in (
+        "launches", "images_per_s", "step_ms", "collectives", "collective_ms", "profile",
+        "checksums_agree", "kernel_checks")} for r in ranks], "seconds": time.time() - t0}
+    for r in ranks:
+        print("[dp] (b) rank {} of {} ranks sharing one card ({}): K1 launches {} in {} DP ER + "
+              "ASER steps; {:.1f} images/s, {:.1f} ms a step, {:.0f} collectives a step ({:.2f} "
+              "ms in them); profiled: {:.0f} kernels, {:.3f} ms device a step, K1 {:.1f} "
+              "launches, {:.5f} ms a step; parameter checksums agree after every step: {}".format(
+                  r["rank"], DP_RANKS, card, r["launches"], DP_STEPS, r["images_per_s"],
+                  r["step_ms"], r["collectives"], r["collective_ms"], r["profile"]["kernels"],
+                  r["profile"]["device_ms"], r["profile"]["k1_launches"],
+                  r["profile"]["k1_device_ms"], r["checksums_agree"]))
+        print("[dp] (b) rank {}: K1 against its plain version at the DP step's shapes (n, m, d): "
+              "max abs error (limit {}) and its ratio to the largest ||a||^2 + ||b||^2 (limit "
+              "{}): {}".format(r["rank"], MAX_ABS, MAX_REL,
+                               [(list(sh), "{:.2e}".format(a), "{:.2e}".format(q))
+                                for sh, a, q in r["kernel_checks"]]))
+    for r in ranks:
+        for shape, abs_err, scaled in r["kernel_checks"]:
+            require(math.isfinite(abs_err) and abs_err <= MAX_ABS and scaled <= MAX_REL,
+                    "rank {}: K1 disagrees with plain at the DP step's {}".format(r["rank"], shape))
+        require(r["launches"] > 0 or device.type != "cuda",
+                "rank {} launched no K1 in the DP ASER step".format(r["rank"]))
+        require(r["checksums_agree"], "the ranks' parameters differ after a DP step")
+    print("[dp] (b) one DP step against one rank's: max parameter difference {:.3e}, "
+          "current_index {} / {}, buffer labels equal {}".format(
+              diff, r0["current_index"], state.buffer.current_index, labels_equal))
+    require(diff < 1e-3 and labels_equal and r0["current_index"] == state.buffer.current_index,
+            "the DP step departs from one rank's step")
+    dr = ranks[0]["dryrun"]
+    print("[dp] (c)-(d) the dry run's patterns at nf {} on {} ranks: parameters agree {}, losses "
+          "{}, NCM fan-out / unsharded accuracy on SCR's model {}; {:.1f} s".format(
+              nf, DP_RANKS, dr["agree"], {k: round(v, 4) for k, v in dr["loss"].items()},
+              dr["ncm"], dr["seconds"]))
+    require(dr["ncm"][0] == dr["ncm"][1], "the NCM fan-out departs from the unsharded eval")
+
+    # (e) phase 21 (a)'s stacked runs, dealt to the ranks (in the same launch)
+    out["stacked"] = ranks[0]["stacked"]
+    end_acc = out["stacked"]["end_acc"]
+    print("[dp] (e) {} stacked fused-ER runs dealt to {} ranks, 2 tasks x 50 steps, nf {} ({}): "
+          "Avg_End_Acc a run {}; {:.1f} s".format(STACKED_RUNS, DP_RANKS, nf, card,
+                                                [round(a, 4) for a in end_acc],
+                                                out["stacked"]["seconds"]))
+    require(all(a > 0.5 for a in end_acc), "a dealt stacked run reads {}".format(end_acc))
+
+    # (f) NCCL: world size 1, then two ranks on the one card
+    if device.type != "cuda":
+        return out
+    t0 = time.time()
+    with launch_limit(300):
+        one = parallel.launch(nccl_rank, (dp_flags,), 1, "cuda", backend="nccl")[0]
+        try:
+            parallel.launch(nccl_rank, (dp_flags,), 2, "cuda", backend="nccl")
+            answer = "NCCL ran two ranks on one card"
+        except Exception as e:   # expected: NCCL refuses a duplicate GPU
+            lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+            answer = next((ln for ln in lines if "Duplicate GPU" in ln),
+                          lines[-1] if lines else "")
+    out["nccl"] = {"world_1": one, "two_ranks_one_card": answer, "seconds": time.time() - t0}
+    print("[dp] (f) DP ER step under NCCL at world size 1: losses {}; two NCCL ranks on one card: "
+          "{}; {:.1f} s".format([round(v, 4) for v in one["loss"]], answer,
+                                out["nccl"]["seconds"]))
+    require(one["backend"] == "nccl" and all(math.isfinite(v) for v in one["loss"]),
+            "the NCCL step at world size 1 failed")
+    return out
+
+
 def main():
     script_t0 = time.time()
     import torch
@@ -2398,6 +2776,13 @@ def main():
         "mini": data["mini_imagenet"], "mini_bf16": data["mini_imagenet_bf16"]}, device)
     family["bf16"] = {"phase_s": time.time() - t0}
     print("[bf16] phase 23: {:.1f} s ({})".format(family["bf16"]["phase_s"], card))
+
+    # 24. --n_devices: the eval fan-out through the CLI, the DP step over a
+    # slot-sharded buffer, the dry run's patterns, dealt stacked runs, NCCL
+    t0 = time.time()
+    dp_figs = run_dp_phase(torch, card, device)
+    family["dp"] = {"phase_s": time.time() - t0}
+    print("[dp] phase 24: {:.1f} s ({})".format(family["dp"]["phase_s"], card))
     print("[family] seconds a phase ({}): {}".format(card, ", ".join(
         "{} {:.1f}".format(tag, f["phase_s"]) for tag, f in family.items() if "phase_s" in f)))
 
@@ -2430,7 +2815,18 @@ def main():
                       "mini_imagenet": {"launches": data["mini_imagenet_bf16"]["launches"],
                                         "shapes": [[list(k), c] for k, c in
                                                    data["mini_imagenet_bf16"]["shapes"]]},
-                      "inputs": "float32"}}]}))
+                      "inputs": "float32"},
+        "dp_runs": {"ranks_sharing_one_card": DP_RANKS, "backend": "gloo",
+                    "launches_per_rank": [r["launches"] for r in dp_figs["step"]["ranks"]],
+                    "steps": DP_STEPS,
+                    "launches_a_step_per_rank": [r["profile"]["k1_launches"]
+                                                 for r in dp_figs["step"]["ranks"]],
+                    "device_ms_a_step_per_rank": [r["profile"]["device_ms"]
+                                                  for r in dp_figs["step"]["ranks"]],
+                    "max_abs_err": max(a for r in dp_figs["step"]["ranks"]
+                                       for _, a, _ in r["kernel_checks"]),
+                    "shapes": [list(s) for s, _, _ in
+                               dp_figs["step"]["ranks"][0]["kernel_checks"]]}}]}))
     print("[total] chip_smoke.py {:.1f} s ({})".format(time.time() - script_t0, card))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

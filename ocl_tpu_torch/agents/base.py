@@ -43,6 +43,7 @@ from ocl_tpu_torch.models import (
 )
 from ocl_tpu_torch.ops import losses
 from ocl_tpu_torch.optim import StackedOptimizer, setup_opt
+from ocl_tpu_torch.parallel.mesh import gather_batch
 from ocl_tpu_torch.utils.meters import AverageMeter
 
 NCM_CHUNK = 256  # buffer rows per exemplar-feature forward in NCM eval
@@ -195,6 +196,9 @@ class ContinualLearner:
         self.fc_norm_old: list = []
         self.bias_norm_new: list = []
         self.bias_norm_old: list = []
+        # the mesh evaluation fans out over (--n_devices > 1; set by the
+        # runner in each rank), or None
+        self.eval_mesh = None
 
     # ---------------------------------------------------------------- state
 
@@ -431,6 +435,12 @@ class ContinualLearner:
 
         test_loaders: list of (x [nb, B, H, W, C], y [nb, B], mask [nb, B])
         tensors on the device (see data.prepare_test_loaders).
+
+        With `eval_mesh` set (--n_devices > 1), each rank holds its rows of
+        every test batch (parallel/dp.py::shard_loaders) and the correct and
+        total counts are summed over the ranks, so every rank returns the
+        unsharded evaluation's accuracies (counterpart of the sharded eval of
+        ocl_tpu/agents/base.py:297-330).
         """
         if self.ncm_classify:
             return self._evaluate_ncm(state, test_loaders)
@@ -446,8 +456,10 @@ class ContinualLearner:
                 c = c + ((predict(xb) == yb) & mb).sum()
             correct.append(c)
             total.append(m.sum())
-        correct = torch.stack(correct).cpu().numpy()
-        total = torch.stack(total).cpu().numpy()
+        counts = torch.stack([torch.stack(correct), torch.stack(total)])
+        if self.eval_mesh is not None:
+            self.eval_mesh.all_reduce_(counts)
+        correct, total = counts.cpu().numpy()
         accs = correct / np.maximum(total, 1)
         if self.verbose:
             print(accs)
@@ -462,7 +474,10 @@ class ContinualLearner:
         columns, and the linear head's per-group weight and bias means (NaN
         for an empty group; none for a model without `linear`); dumps
         (correct_lb, predict_lb) to a `confusion` pickle in the working
-        directory. Each test set's predictions and logits are read back once."""
+        directory. Each test set's predictions and logits are read back once.
+        Fanned out (`eval_mesh`), each rank computes its rows' logits and
+        gathers every rank's, and rank 0 writes the pickle."""
+        mesh = self.eval_mesh
         zombie = set(self.new_labels_zombie)
         old_minus_z = sorted(set(self.old_labels) - zombie)
         zombie_l = sorted(zombie)
@@ -471,7 +486,10 @@ class ContinualLearner:
         new_score, old_score = AverageMeter(), AverageMeter()
         correct_lb, predict_lb = [], []
         for task, (x, y, m) in enumerate(test_loaders):
-            logits = torch.cat([forward_eval(state.model, xb) for xb in x])
+            logits = torch.stack([forward_eval(state.model, xb) for xb in x])
+            if mesh is not None:
+                logits, y, m = (gather_batch(mesh, t, 1) for t in (logits, y, m))
+            logits = logits.reshape(-1, logits.shape[-1])
             ms = m.reshape(-1).cpu().numpy()
             logits = logits.cpu().numpy()[ms]
             ys = y.reshape(-1).cpu().numpy()[ms]
@@ -520,8 +538,9 @@ class ContinualLearner:
             print(self.fc_norm_new)
             print(self.bias_norm_old)
             print(self.bias_norm_new)
-        with open("confusion", "wb") as fp:
-            pickle.dump([correct_lb, predict_lb], fp)
+        if mesh is None or mesh.rank == 0:
+            with open("confusion", "wb") as fp:
+                pickle.dump([correct_lb, predict_lb], fp)
         return accs
 
     def ncm_means(self, state: TrainState, noise=None):
@@ -529,18 +548,37 @@ class ContinualLearner:
         (eval mode, chunks of NCM_CHUNK rows, each feature L2-normalised). A
         class with no exemplar gets a normal-noise mean from the run's
         generator (`noise` [n_classes, D] replaces the draw); with
-        --abl_ncm_zero_empty it gets 1e6 in every entry, out of reach."""
+        --abl_ncm_zero_empty it gets 1e6 in every entry, out of reach.
+
+        Fanned out (`eval_mesh`), each rank sweeps its share of the rows (of
+        a slot-sharded buffer, the slots it holds), the sums and counts are
+        summed over the ranks and rank 0's noise is used, so every rank holds
+        the same means."""
         buf = state.buffer
-        feats = torch.cat([features_eval(state.model, c) for c in buf.imgs.split(NCM_CHUNK)])
+        mesh = self.eval_mesh
+        dim = feature_dim_for(self.data, self.params.nf)
+        if mesh is None:
+            imgs, labels, valid = buf.imgs, buf.labels, valid_mask(buf)
+        elif hasattr(buf, "own_rows"):   # parallel/sharded_buffer.py
+            imgs, labels, valid = buf.own_rows()
+        else:
+            s = mesh.span(buf.mem_size)
+            imgs, labels, valid = buf.imgs[s], buf.labels[s], valid_mask(buf)[s]
+        feats = torch.cat([features_eval(state.model, c) for c in imgs.split(NCM_CHUNK)]) \
+            if imgs.shape[0] else imgs.new_zeros(0, dim)
         feats = feats / torch.clamp(feats.norm(dim=1, keepdim=True), min=1e-12)
-        w = valid_mask(buf).float()
+        w = valid.float()
         # out of place, so that it also maps under vmap (ncm_means_stacked)
         sums = torch.zeros(self.n_classes, feats.shape[1], device=self.device).index_add(
-            0, buf.labels, feats * w[:, None])
-        cnts = torch.zeros(self.n_classes, device=self.device).index_add(0, buf.labels, w)
+            0, labels, feats * w[:, None])
+        cnts = torch.zeros(self.n_classes, device=self.device).index_add(0, labels, w)
         if noise is None:
-            noise = torch.randn(self.n_classes, feature_dim_for(self.data, self.params.nf),
-                                generator=state.generator, device=self.device)
+            noise = torch.randn(self.n_classes, dim, generator=state.generator,
+                                device=self.device)
+        if mesh is not None:
+            mesh.all_reduce_(sums)
+            mesh.all_reduce_(cnts)
+            mesh.broadcast_(noise)
         has = (cnts > 0)[:, None]
         means = torch.where(has, sums / torch.clamp(cnts, min=1.0)[:, None], noise)
         means = means / torch.clamp(means.norm(dim=1, keepdim=True), min=1e-12)

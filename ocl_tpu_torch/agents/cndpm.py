@@ -57,6 +57,7 @@ from ocl_tpu_torch.models.ndpm import (
     vae_encode_all,
     vae_nlls,
 )
+from ocl_tpu_torch.parallel import dp
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 EVAL_NOISE_SEED = 99   # ocl_tpu folds 99 into the run's key for evaluation
@@ -223,11 +224,19 @@ class Cndpm(ContinualLearner):
         ag, p = state.agent, self.params
         n = ag["active"]
         noise = draws["noise"] if draws else self._noise(state, xb.shape[0], 1 + n)
-        loss, to_stm, usage, leaves = self.wake_loss(state, xb, yb, noise)
+        # data-parallel (parallel/dp.py): the wake loss of this rank's rows (a
+        # sum over rows, so the shares add up), its gradients, the slots'
+        # usage and the routing summed or gathered over the ranks; the STM
+        # takes the global batch's routed rows alike on every rank
+        loss, to_stm, usage, leaves = self.wake_loss(
+            state, *dp.local_rows(xb, yb), [dp.local_rows(z) for z in noise])
+        to_stm = dp.gather_rows(to_stm.to(torch.uint8)).bool()
+        usage = dp.rank_sum(usage)
         if n:
             parts = ("vae", "cls")
-            grads = torch.autograd.grad(loss, [v for part in parts for v in leaves[part].values()],
-                                        materialize_grads=True)
+            grads = dp.rank_sum_all(torch.autograd.grad(
+                loss, [v for part in parts for v in leaves[part].values()],
+                materialize_grads=True))
             it = iter(grads)
             grads = {part: {k: next(it) for k in leaves[part]} for part in parts}
         loss = loss.detach()
@@ -373,6 +382,8 @@ class Cndpm(ContinualLearner):
             # chance-level zeros instead of raising
             return np.zeros(len(test_loaders))
         noise = self.eval_noise(state) if noise is None else noise
+        if self.eval_mesh is not None:   # this rank's rows of each test batch
+            noise = [z[self.eval_mesh.rows(z.shape[0], "test batch rows")] for z in noise]
         lc = state.agent["log_counts"]
         return self._accuracies(
             test_loaders, lambda xb: ndpm_predict(state.model, xb, noise, lc, n).argmax(1))

@@ -24,6 +24,10 @@ runs them, the retrieval and the update for every point under vmap
 (agents/base.py::point_map), every strategy included: MIR's virtual step
 reads each point's batch gradients, and GSS gates its replacements on the
 device (buffer/gss.py).
+
+In a data-parallel step (parallel/dp.py) each rank takes its rows of the
+batch and of the retrieved memory; the losses are its shares of the global
+batch's, and the gradients are summed over the ranks before the step.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 from ocl_tpu_torch.agents.base import ContinualLearner, point_map
 from ocl_tpu_torch.buffer import build_retrieve, build_update
 from ocl_tpu_torch.models import forward_train
+from ocl_tpu_torch.parallel import dp
 
 
 def batch_grads(model):
@@ -83,6 +88,7 @@ class ExperienceReplay(ContinualLearner):
         # the masked mean is 0 when no memory row is valid (ocl_tpu's
         # jnp.where(jnp.any(mem_mask), loss_m, 0.0))
         loss_m = self.criterion(logits[batch:], mem_y, ctx, mem_mask)
+        loss_b, loss_m = dp.share(loss_b), dp.share(loss_m, mem_mask)
         return loss_b + loss_m, loss_b, (logits[:batch].argmax(1) == yb).float().mean()
 
     def batch_loss(self, state, ctx, xb, yb):
@@ -90,7 +96,7 @@ class ExperienceReplay(ContinualLearner):
         logits_b = forward_train(state.model, xb)
         loss_b = self.criterion(logits_b, yb, ctx)
         loss_b = self.maybe_kd_blend(loss_b, logits_b, xb, ctx, state.agent)
-        return loss_b, (logits_b.argmax(1) == yb).float().mean()
+        return dp.share(loss_b), (logits_b.argmax(1) == yb).float().mean()
 
     def memory_loss(self, state, ctx, mem_x, mem_y, mem_mask):
         """Two-pass: the memory rows' loss (in ASER mode the pass only folds
@@ -99,7 +105,8 @@ class ExperienceReplay(ContinualLearner):
         if self.aser_mode:
             return logits_m.new_zeros(())
         loss_m = self.criterion(logits_m, mem_y, ctx, mem_mask)
-        return self.maybe_kd_blend(loss_m, logits_m, mem_x, ctx, state.agent, mem_mask)
+        loss_m = self.maybe_kd_blend(loss_m, logits_m, mem_x, ctx, state.agent, mem_mask)
+        return dp.share(loss_m, mem_mask)
 
     def combined_loss(self, state, ctx, xb, yb, mem_x, mem_y, mem_mask):
         """ASER mode: the loss of one combined [memory; batch] pass."""
@@ -107,27 +114,31 @@ class ExperienceReplay(ContinualLearner):
         comb_x, comb_y = torch.cat([mem_x, xb]), torch.cat([mem_y, yb])
         logits = forward_train(state.model, comb_x, comb_mask)
         loss = self.criterion(logits, comb_y, ctx, comb_mask)
-        return self.maybe_kd_blend(loss, logits, comb_x, ctx, state.agent, comb_mask)
+        loss = self.maybe_kd_blend(loss, logits, comb_x, ctx, state.agent, comb_mask)
+        return dp.share(loss, comb_mask)
 
     def fused_iter(self, state, ctx, xb, yb, ret_draws):
         with torch.no_grad():
             mem = self.retrieve.run(state.model, state.buffer, xb, yb, ret_draws)
         state.optimizer.zero_grad()
-        loss, loss_b, acc_b = self.fused_loss(state, ctx, xb, yb, mem)
+        loss, loss_b, acc_b = self.fused_loss(state, ctx, *dp.local_rows(xb, yb),
+                                              dp.local_rows(*mem))
         loss.backward()
+        dp.reduce_grads(state.model)
         state.optimizer.step()
         return loss_b, acc_b
 
     def two_pass_iter(self, state, ctx, xb, yb, ret_draws):
         model, opt, buf = state.model, state.optimizer, state.buffer
+        xb_r, yb_r = dp.local_rows(xb, yb)
         opt.zero_grad()
         with torch.set_grad_enabled(not self.aser_mode):
-            loss_b, acc_b = self.batch_loss(state, ctx, xb, yb)
+            loss_b, acc_b = self.batch_loss(state, ctx, xb_r, yb_r)
         if not self.aser_mode:
             loss_b.backward()
 
-        mem_x, mem_y, mem_mask = self.retrieve.run(
-            model, buf, xb, yb, ret_draws, grads=None if self.aser_mode else batch_grads(model))
+        mem_x, mem_y, mem_mask = dp.local_rows(*self.retrieve.run(
+            model, buf, xb, yb, ret_draws, grads=None if self.aser_mode else batch_grads(model)))
         # ocl_tpu runs the memory pass when jnp.any(mem_mask). An empty buffer
         # has no valid row, which this host test sees; a retrieval that
         # returns no valid row from a filled buffer (match before its warmup
@@ -140,7 +151,8 @@ class ExperienceReplay(ContinualLearner):
                 loss_m.backward()
 
         if self.aser_mode:
-            self.combined_loss(state, ctx, xb, yb, mem_x, mem_y, mem_mask).backward()
+            self.combined_loss(state, ctx, xb_r, yb_r, mem_x, mem_y, mem_mask).backward()
+        dp.reduce_grads(model)
         opt.step()
         return loss_b, acc_b
 

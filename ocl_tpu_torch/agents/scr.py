@@ -32,6 +32,7 @@ from ocl_tpu_torch.config import input_size_match
 from ocl_tpu_torch.models import forward_train
 from ocl_tpu_torch.ops.augment import draw_scr_transform, scr_transform
 from ocl_tpu_torch.ops.losses import supcon_loss
+from ocl_tpu_torch.parallel import dp
 
 
 class SupContrastReplay(ContinualLearner):
@@ -49,15 +50,20 @@ class SupContrastReplay(ContinualLearner):
 
     def two_view_loss(self, model, x, y, mask, aug_draws):
         """SupCon loss over [x, scr_transform(x)]; `mask` [B] or None marks
-        the valid rows."""
+        the valid rows. In a data-parallel step each rank forwards its rows
+        of both views, and the projected features of every rank's rows are
+        gathered before the loss, whose positives span the global batch;
+        the rank's share is the loss over W."""
         aug = scr_transform(x, aug_draws)
+        x_r, aug_r, m_r = dp.local_rows(x, aug, mask)
         if self.fused_views:
-            m2 = None if mask is None else torch.cat([mask, mask])
-            f1, f2 = forward_train(model, torch.cat([x, aug]), m2).chunk(2)
+            m2 = None if m_r is None else torch.cat([m_r, m_r])
+            f1, f2 = forward_train(model, torch.cat([x_r, aug_r]), m2).chunk(2)
         else:
-            f1 = forward_train(model, x, mask)
-            f2 = forward_train(model, aug, mask)
-        return supcon_loss(torch.stack([f1, f2], dim=1), y, self.temp, mask=mask)
+            f1 = forward_train(model, x_r, m_r)
+            f2 = forward_train(model, aug_r, m_r)
+        feats = dp.gather_rows(torch.stack([f1, f2], dim=1))
+        return dp.share(supcon_loss(feats, y, self.temp, mask=mask))
 
     def has_memory(self, buf, mem_mask) -> bool:
         """Whether a retrieval returned a valid row (see the module's
@@ -93,6 +99,7 @@ class SupContrastReplay(ContinualLearner):
             opt.zero_grad()
             loss = self.two_view_loss(model, comb_x, comb_y, comb_mask, aug)
             loss.backward()
+            dp.reduce_grads(model)
             opt.step()
         upd = draws["update"] if draws is not None else self.update.draw(state.generator,
                                                                            xb.shape[0])

@@ -5,7 +5,10 @@ Class-balanced sampling is per-class Gumbel top-k over the buffer's
 class_counts; the KNN-SV scoring runs batched over fixed shapes with
 validity masks, and its distances go through the CUDA kernel on the card.
 The fill-or-score and random-or-score branches are host branches on the
-buffer's Python-int counters.
+buffer's Python-int counters. In a data-parallel step (parallel/dp.py) each
+rank computes the features of its share of the rows and gathers the rest,
+so every rank holds the same features, runs the kernel on the full
+matrices and makes the same picks.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from ocl_tpu_torch.buffer.state import valid_mask, write_slots
 from ocl_tpu_torch.config import n_classes_match
 from ocl_tpu_torch.models import features_eval
 from ocl_tpu_torch.ops.knn_sv import knn_sv, masked_max, masked_mean, masked_min, sum_rows
+from ocl_tpu_torch.parallel.dp import row_map
 
 
 def _stable_argsort(v):
@@ -71,11 +75,12 @@ def build_aser_update(agent) -> Strategy:
         # candidate set: random memory sample excluding eval + overflow batch
         excl = exclusion_mask(ev_idx, ev_mask, mem)
         cd_idx, cd_mask = sample_slots(draws["cand"], valid_mask(buf) & ~excl, n_total_smp)
-        cand_x = torch.cat([buf.imgs[cd_idx], x])
-        cand_y = torch.cat([buf.labels[cd_idx], y])
+        cd_x, cd_y = buf.take(cd_idx)
+        cand_x = torch.cat([cd_x, x])
+        cand_y = torch.cat([cd_y, y])
         cand_mask = torch.cat([cd_mask, over_mask])
 
-        feats = features_eval(model, torch.cat([eval_x, cand_x]))
+        feats = row_map(lambda r: features_eval(model, r), torch.cat([eval_x, cand_x]))
         ef, cf = feats[: eval_x.shape[0]], feats[eval_x.shape[0]:]
         sv = sum_rows(knn_sv(ef, eval_y, eval_mask, cf, cand_y, cand_mask, k))
 
@@ -150,14 +155,14 @@ def build_aser_retrieve(agent) -> Strategy:
         batch_mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
 
         if aser_type == "neg_sv":
-            feats = features_eval(model, torch.cat([x, cand_x]))
+            feats = row_map(lambda r: features_eval(model, r), torch.cat([x, cand_x]))
             af, cf = feats[: x.shape[0]], feats[x.shape[0]:]
             sv = -sum_rows(knn_sv(af, y, batch_mask, cf, cand_y, cand_mask, k))
         else:
             excl = exclusion_mask(cand_idx, cand_mask, buf.mem_size)
             coop_x, coop_y, _, coop_mask = class_balanced_sample(
                 buf, n_smp_cls, draws["coop"], excl_mask=excl)
-            feats = features_eval(model, torch.cat([x, coop_x, cand_x]))
+            feats = row_map(lambda r: features_eval(model, r), torch.cat([x, coop_x, cand_x]))
             af = feats[: x.shape[0]]
             of = feats[x.shape[0]: x.shape[0] + coop_x.shape[0]]
             cf = feats[x.shape[0] + coop_x.shape[0]:]

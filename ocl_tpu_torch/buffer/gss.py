@@ -74,8 +74,9 @@ def build_gss_update(agent):
         if n > buf.mem_size:
             idx = torch.cat([idx, idx.new_zeros(n - buf.mem_size)])
             elem_mask = torch.cat([elem_mask, elem_mask.new_zeros(n - buf.mem_size)])
-        xs = buf.imgs[idx].reshape(strength, gss_bsz, *buf.imgs.shape[1:])
-        ys = buf.labels[idx].reshape(strength, gss_bsz)
+        xs, ys = buf.take(idx)
+        xs = xs.reshape(strength, gss_bsz, *xs.shape[1:])
+        ys = ys.reshape(strength, gss_bsz)
         ms = elem_mask.reshape(strength, gss_bsz)
         return xs, ys, ms, ms.any(1)
 
@@ -125,7 +126,7 @@ def build_gss_update(agent):
             repl = repl & gate
         new_score = torch.where(repl, item_sim, score[cand])
         write_slots(buf, cand, x, y, repl)
-        buf.slot_score[cand] = new_score
+        buf.write_score(cand, new_score)
 
     def fill_branch(model, params, buf, x, y, draws):
         batch = x.shape[0]
@@ -140,7 +141,7 @@ def build_gss_update(agent):
         pos = torch.arange(batch, device=x.device)
         write = pos < offset
         write_slots(buf, cur + pos, x, y, write)
-        buf.slot_score[torch.where(write, cur + pos, buf.mem_size)] = scores
+        buf.write_score(cur + pos, scores, write)
         buf.current_index = cur + offset
 
     def update(model, buf, x, y, draws):

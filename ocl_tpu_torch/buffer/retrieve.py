@@ -56,7 +56,7 @@ def random_retrieve(buf: BufferState, num_retrieve: int, g, excl_mask=None):
     if excl_mask is not None:
         eligible = eligible & ~excl_mask
     idx, mask = sample_slots(g, eligible, num_retrieve)
-    return buf.imgs[idx], buf.labels[idx], idx, mask
+    return (*buf.take(idx), idx, mask)
 
 
 def class_balanced_sample(buf: BufferState, n_smp_cls: int, g, excl_mask=None):
@@ -78,4 +78,4 @@ def class_balanced_sample(buf: BufferState, n_smp_cls: int, g, excl_mask=None):
     mask = torch.arange(n_smp_cls, device=dev)[None, :] < counts[:, None]
     idx, mask = idx.reshape(-1), mask.reshape(-1)
     safe_idx = torch.where(mask, idx, 0)
-    return buf.imgs[safe_idx], buf.labels[safe_idx], safe_idx, mask
+    return (*buf.take(safe_idx), safe_idx, mask)

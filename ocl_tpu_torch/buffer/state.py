@@ -46,6 +46,27 @@ class BufferState:
     def score(self) -> torch.Tensor:
         return self.slot_score[:-1]
 
+    def take(self, idx):
+        """(images [k, ...], labels [k]) of slots `idx` [k]."""
+        return self.imgs[idx], self.labels[idx]
+
+    def write(self, slot_idx, x, y, write_mask) -> None:
+        """write_slots' body (a slot-sharded buffer writes the slots it owns)."""
+        mem = self.mem_size
+        old_labels = self.slot_labels[slot_idx.clamp(0, mem - 1)]
+        was_filled = (slot_idx < self.current_index) & write_mask
+        self.class_counts.index_add_(0, old_labels, -was_filled.long())
+        self.class_counts.index_add_(0, y, write_mask.long())
+        safe_idx = torch.where(write_mask, slot_idx, mem)
+        self.slot_imgs[safe_idx] = x
+        self.slot_labels[safe_idx] = y
+
+    def write_score(self, slot_idx, values, write_mask=None) -> None:
+        """GSS scores `values` into slots `slot_idx` (where `write_mask`)."""
+        if write_mask is not None:
+            slot_idx = torch.where(write_mask, slot_idx, self.mem_size)
+        self.slot_score[slot_idx] = values
+
 
 def init_buffer(mem_size: int, data: str, device) -> BufferState:
     shape = tuple(input_size_match[data])
@@ -70,14 +91,7 @@ def write_slots(buf: BufferState, slot_idx, x, y, write_mask) -> None:
     Duplicate slot indices must not occur among masked-on entries
     (strategies guarantee this).
     """
-    mem = buf.mem_size
-    old_labels = buf.slot_labels[slot_idx.clamp(0, mem - 1)]
-    was_filled = (slot_idx < buf.current_index) & write_mask
-    buf.class_counts.index_add_(0, old_labels, -was_filled.long())
-    buf.class_counts.index_add_(0, y, write_mask.long())
-    safe_idx = torch.where(write_mask, slot_idx, mem)
-    buf.slot_imgs[safe_idx] = x
-    buf.slot_labels[safe_idx] = y
+    buf.write(slot_idx, x, y, write_mask)
 
 
 @dataclass

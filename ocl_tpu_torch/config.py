@@ -138,8 +138,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--head", type=str, default="mlp")
     # extensions of ocl_tpu (not in the original reference)
     parser.add_argument("--n_devices", dest="n_devices", default=0, type=int,
-                        help="devices to shard eval over in ocl_tpu; the port "
-                             "evaluates on --device and raises for more than 1")
+                        help="above 1: ranks of torch.distributed to start "
+                             "(rank r on cuda:(r %% cards), or on the CPU under "
+                             "--device cpu; NCCL when each rank has a card, else "
+                             "gloo): rank 0 trains and evaluation fans out over "
+                             "the ranks, as ocl_tpu shards its eval over devices; "
+                             "with --parallel_runs the runs or tune points are "
+                             "dealt to the ranks. 0 or 1: one process")
     parser.add_argument("--synthetic_size", dest="synthetic_size", default=2000, type=int,
                         help="train images per class for the synthetic dataset")
     parser.add_argument("--synthetic_difficulty", dest="synthetic_difficulty",

@@ -14,6 +14,13 @@ Works for agents whose step is a per-point function and whose eval is the
 softmax path (ER with every strategy, AGEM, EWC++, LwF); the rest, listed
 by `unstackable`, go to the sequential `multiple_run` with the reason
 printed.
+
+With --n_devices W > 1 the runs are dealt round-robin to W ranks
+(parallel/mesh.py::launch; run r to rank r mod W), each rank stacks its
+share, and the accuracy matrices come back to every rank in run order.
+ocl_tpu shards its run axis one run a device by itself whenever it sees at
+least R devices; the port's ranks exist only under --n_devices, so here the
+flag is the trigger.
 """
 
 from __future__ import annotations
@@ -166,11 +173,31 @@ def _stack_loaders(per_run):
     return tuple(torch.stack(ts) for ts in zip(*per_run))
 
 
+def dealt(n: int, mesh) -> list:
+    """The points of n that `mesh`'s rank trains (round-robin), or all of
+    them in a single process."""
+    return list(range(n)) if mesh is None else list(range(mesh.rank, n, mesh.size))
+
+
+def gather_dealt(mesh, local: np.ndarray, n: int) -> np.ndarray:
+    """[n, ...] from every rank's rows of its `dealt` points, in point order,
+    on every rank."""
+    if mesh is None:
+        return local
+    mesh.wait_all()   # a rank with fewer or faster points waits here, with no limit
+    per = -(-n // mesh.size)
+    pad = np.zeros((per,) + local.shape[1:], np.float64)
+    pad[: len(local)] = local
+    every = mesh.all_gather(torch.tensor(pad, device=mesh.device)).cpu().numpy()
+    return np.stack([every[(p % mesh.size) * per + p // mesh.size] for p in range(n)])
+
+
 def multiple_run_parallel(params, store=False, save_path=None):
     """`params.num_runs` runs trained stacked; prints multiple_run's metric
     lines and an aggregate throughput; returns compute_performance's tuple."""
     from ocl_tpu_torch.config import apply_runtime_flags
-    from ocl_tpu_torch.experiment.run import check_supported, multiple_run
+    from ocl_tpu_torch.experiment.run import (check_supported, fan_out_mesh, multiple_run,
+                                              start_ranks)
 
     # ocl_tpu runs sequentially on a single device when num_runs > 1: its
     # stacked convolutions were slower there. On one card the port stacks
@@ -182,33 +209,44 @@ def multiple_run_parallel(params, store=False, save_path=None):
         print("[parallel_runs] {}: sequential multiple_run".format(reason))
         return multiple_run(params, store=store, save_path=save_path)
     check_supported(params)
+    ranks = start_ranks(multiple_run_parallel, params, store, save_path)
+    if ranks is not None:
+        return ranks[0]
+    mesh = fan_out_mesh(params)
+    if mesh is not None and params.num_runs < mesh.size:
+        raise ValueError("{} runs cannot be dealt to {} ranks: give each rank a run".format(
+            params.num_runs, mesh.size))
     apply_runtime_flags(params)
     device = torch.device(params.device)
 
     start = time.time()
     n_runs = params.num_runs
-    print("Setting up data stream ({} stacked runs)".format(n_runs))
+    mine = dealt(n_runs, mesh)
+    print("Setting up data stream ({} stacked runs{})".format(
+        n_runs, "" if mesh is None else ", dealt to {} ranks".format(mesh.size)))
     data_continuum = continuum(params.data, params.cl_type, params)
     np.random.seed(params.seed)
     runs_tasks, runs_tests = [], []
-    for _ in range(n_runs):
+    for r in range(n_runs):
         data_continuum.new_run()
-        runs_tasks.append(list(data_continuum))
-        runs_tests.append(prepare_test_loaders(data_continuum.test_data(), params, device))
+        tasks = list(data_continuum)
+        if r in mine:
+            runs_tasks.append(tasks)
+            runs_tests.append(prepare_test_loaders(data_continuum.test_data(), params, device))
     n_tasks, n_tests = len(runs_tasks[0]), len(runs_tests[0])
-    tests = [_stack_loaders([runs_tests[r][t] for r in range(n_runs)]) for t in range(n_tests)]
+    tests = [_stack_loaders([rt[t] for rt in runs_tests]) for t in range(n_tests)]
 
     agent = agents[params.agent](params)
-    ss = _stack([agent.init_state(params.seed + r) for r in range(n_runs)])
+    ss = _stack([agent.init_state(params.seed + r) for r in mine])
 
-    old_labels = [set() for _ in range(n_runs)]
-    acc = np.zeros((n_runs, n_tasks, n_tests))
+    old_labels = [set() for _ in mine]
+    acc = np.zeros((len(mine), n_tasks, n_tests))
     tput = Throughput()
     for t in range(n_tasks):
-        old_mask = torch.zeros(n_runs, agent.n_classes, dtype=torch.bool)
-        new_mask = torch.zeros(n_runs, agent.n_classes, dtype=torch.bool)
+        old_mask = torch.zeros(len(mine), agent.n_classes, dtype=torch.bool)
+        new_mask = torch.zeros(len(mine), agent.n_classes, dtype=torch.bool)
         xs, ys = [], []
-        for r in range(n_runs):
+        for r in range(len(mine)):
             x, y, _labels = runs_tasks[r][t]
             new = sorted(set(int(v) for v in np.asarray(y).reshape(-1)))
             old_mask[r, sorted(old_labels[r])] = True
@@ -232,8 +270,14 @@ def multiple_run_parallel(params, store=False, save_path=None):
         if params.verbose:
             print("task {}: acc {}".format(t, acc[:, t, : len(seen)].mean(axis=0)))
 
+    acc = gather_dealt(mesh, acc, n_runs)
+    images_per_s = tput.images_per_sec()
+    if mesh is not None:   # every rank's images over the slowest rank's seconds
+        it = mesh.all_gather(torch.tensor([[tput.images, tput.seconds]], dtype=torch.float64,
+                                          device=mesh.device)).cpu().numpy()
+        images_per_s = it[:, 0].sum() / it[:, 1].max() if it[:, 1].max() else 0.0
     end = time.time()
-    if store:
+    if store and (mesh is None or mesh.rank == 0):
         result_path = load_yaml("config/global.yml", key="path")["result"]
         table_path = result_path + params.data
         os.makedirs(table_path, exist_ok=True)
@@ -245,7 +289,7 @@ def multiple_run_parallel(params, store=False, save_path=None):
     avg_end_acc, avg_end_fgt, avg_acc, avg_bwtp, avg_fwt = compute_performance(acc)
     print("----------- Total {} run: {}s -----------".format(n_runs, end - start))
     print("----------- aggregate stream throughput {:.1f} images/sec -----------".format(
-        tput.images_per_sec()))
+        images_per_s))
     print("----------- Avg_End_Acc {} Avg_End_Fgt {} Avg_Acc {} Avg_Bwtp {} Avg_Fwt {}-----------"
           .format(avg_end_acc, avg_end_fgt, avg_acc, avg_bwtp, avg_fwt))
     return avg_end_acc, avg_end_fgt, avg_acc, avg_bwtp, avg_fwt

@@ -18,6 +18,13 @@ EWC++ step stacked; iCaRL shares its compact-label bookkeeping and evaluates thr
 the stacked NCM (`ncm_means_stacked`, with --abl_ncm_zero_empty, which
 ocl_tpu's `_make_stacked_ncm` lacks); GDumb builds each val run's balanced
 memory on the host from that run's draws and retrains every point stacked.
+
+With --n_devices W > 1 the points are padded to a multiple of W (repeating
+the last, as ocl_tpu pads its point axis to the device count) and dealt
+round-robin to W ranks (parallel/mesh.py::launch), each rank stacks its
+share, and every rank gets the accuracies back in point order and picks the
+same winner. ocl_tpu shards its points over every device it sees; the
+port's ranks exist only under --n_devices, so here the flag is the trigger.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ import torch
 from ocl_tpu_torch.agents.base import stack_ctx
 from ocl_tpu_torch.config import input_size_match
 from ocl_tpu_torch.experiment.metrics import compute_performance
-from ocl_tpu_torch.experiment.parallel_run import _stack
+from ocl_tpu_torch import parallel
+from ocl_tpu_torch.experiment.parallel_run import _stack, dealt, gather_dealt
 from ocl_tpu_torch.registry import agents
 
 INJECTABLE = {"learning_rate", "weight_decay"}
@@ -108,13 +116,38 @@ def shuffle_generator(seed: int, device):
     return torch.Generator(device=device).manual_seed(draws_seed)
 
 
+def _tune_on_ranks(tune_data, tune_test_loaders, default_params, tune_params, grid, merged):
+    """tune_hyper_parallel in one rank: the test sets onto its device."""
+    mesh = parallel.get_mesh()
+    default_params.device = str(mesh.device)
+    loaders = [tuple(t.to(mesh.device) for t in loader) for loader in tune_test_loaders]
+    return tune_hyper_parallel(tune_data, loaders, default_params, tune_params, grid, merged)
+
+
 def tune_hyper_parallel(tune_data, tune_test_loaders, default_params, tune_params, grid,
                         merged):
     """Returns the winning grid dict (the contract of tune_hyper)."""
+    from ocl_tpu_torch.experiment.run import n_devices
+
+    mesh = None
+    if n_devices(default_params) > 1:
+        mesh = parallel.current()
+        if mesh is None:   # start the ranks; each runs this function
+            loaders = [tuple(t.cpu() for t in loader) for loader in tune_test_loaders]
+            return parallel.launch(_tune_on_ranks, (tune_data, loaders, default_params,
+                                                    tune_params, grid, merged),
+                                   n_devices(default_params), default_params.device)[0]
     R = int(default_params.num_runs_val)
     G = len(grid)
     points = [(g, r) for g in range(G) for r in range(R)]
-    print("{} grid points x {} val runs = {} stacked tuning states".format(G, R, len(points)))
+    n_real = len(points)
+    while mesh is not None and len(points) % mesh.size:
+        points.append(points[-1])
+    print("{} grid points x {} val runs = {} stacked tuning states{}".format(
+        G, R, n_real, "" if mesh is None else " ({} padding), dealt to {} ranks".format(
+            len(points) - n_real, mesh.size)))
+    n_points = len(points)
+    points = [points[i] for i in dealt(n_points, mesh)]
     params_g = [merged(default_params, grid[g]) for g in range(G)]
     # agent 0 serves every point: only lr and wd differ between points, and
     # they live in the stacked optimizer; it carries the host bookkeeping
@@ -145,6 +178,7 @@ def tune_hyper_parallel(tune_data, tune_test_loaders, default_params, tune_param
         ss = agent0.after_train_stacked(ss, ctx)
         acc[:, t] = agent0.evaluate_stacked(ss, tune_test_loaders)
 
+    acc = gather_dealt(mesh, acc, n_points)[:n_real]
     acc = acc.reshape(G, R, len(tune_data), len(tune_test_loaders))
     tune_accs = []
     for g in range(G):

@@ -7,6 +7,15 @@ same metric lines as ocl_tpu and, with `store`, pickles {time, acc_array}
 under config/global.yml's result path. --buffer_tracker checks the buffer's
 class counts after every task; --ckpt_dir saves the whole train state after
 every task and resumes a crashed run after the last saved one.
+
+--n_devices W > 1 starts W ranks (parallel/mesh.py::launch) and fans the
+evaluation out over them, as ocl_tpu's CLI keeps its train state on one
+device and shards only the eval: every rank builds the same stream from the
+seed and keeps only its rows of every test batch on its device; rank 0
+trains, and before each evaluation broadcasts its model and BN buffers (for
+NCM also its buffer) and its label bookkeeping; the correct counts are
+summed over the ranks. Rank 0 alone prints, checkpoints and writes --store
+output. --n_devices 0 or 1 is the single process.
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ import torch
 from ocl_tpu_torch.buffer.state import valid_mask
 from ocl_tpu_torch.data import continuum, prepare_test_loaders
 from ocl_tpu_torch.experiment.metrics import compute_performance
+from ocl_tpu_torch import parallel
+from ocl_tpu_torch.parallel import dp
 from ocl_tpu_torch.registry import agents
 from ocl_tpu_torch.utils import checkpoint
 from ocl_tpu_torch.utils.io import load_yaml
@@ -30,10 +41,51 @@ def check_supported(params):
     if params.agent not in agents:
         raise NotImplementedError("agent {!r} is not ported yet; available: {}".format(
             params.agent, ", ".join(sorted(agents))))
-    if int(getattr(params, "n_devices", 0) or 0) > 1:
-        raise NotImplementedError("--n_devices {}: ocl_tpu's eval sharding over devices is not "
-                                  "ported yet; the port evaluates on --device".format(
-                                      params.n_devices))
+
+
+def n_devices(params) -> int:
+    return int(getattr(params, "n_devices", 0) or 0)
+
+
+def start_ranks(fn, params, *args):
+    """Under --n_devices W > 1 outside the ranks: fn(params, *args) on W
+    ranks (parallel/mesh.py::launch), each rank's result in a list. Else
+    None: a single process, or a rank, whose params then name its device."""
+    if n_devices(params) <= 1:
+        return None
+    mesh = parallel.current()
+    if mesh is None:
+        return parallel.launch(fn, (params,) + args, n_devices(params), params.device)
+    params.device = str(mesh.device)
+    return None
+
+
+def fan_out_mesh(params):
+    """The mesh the evaluation fans out over: this rank's, inside the ranks
+    that --n_devices W > 1 starts; else None."""
+    return parallel.current() if n_devices(params) > 1 else None
+
+
+def rank_test_loaders(test_data, params, device):
+    """prepare_test_loaders on `device`; fanned out (`fan_out_mesh`), this
+    rank's rows of every test batch (dp.shard_loaders) alone."""
+    mesh = fan_out_mesh(params)
+    if mesh is None:
+        return prepare_test_loaders(test_data, params, device)
+    return [tuple(t.to(device) for t in loader) for loader in dp.shard_loaders(
+        mesh, prepare_test_loaders(test_data, params, "cpu"))]
+
+
+def train_for_eval(agent, state, x_train, y_train):
+    """agent.train_learner; fanned out (the agent's `eval_mesh`), on rank 0
+    alone, whose state then goes to every rank for the evaluation
+    (dp.broadcast_state)."""
+    mesh = agent.eval_mesh
+    if mesh is None or mesh.rank == 0:
+        state = agent.train_learner(state, x_train, y_train)
+    if mesh is not None:
+        dp.broadcast_state(mesh, agent, state)
+    return state
 
 
 def _new_agent_and_state(params, run_seed):
@@ -64,6 +116,11 @@ def multiple_run(params, store=False, save_path=None):
     from ocl_tpu_torch.config import apply_runtime_flags
 
     check_supported(params)
+    ranks = start_ranks(multiple_run, params, store, save_path)
+    if ranks is not None:
+        return ranks[0]
+    mesh = fan_out_mesh(params)
+    lead = mesh is None or mesh.rank == 0
     apply_runtime_flags(params)
     device = torch.device(params.device)
     start = time.time()
@@ -71,7 +128,7 @@ def multiple_run(params, store=False, save_path=None):
     data_continuum = continuum(params.data, params.cl_type, params)
     print("data setup time: {}".format(time.time() - start))
 
-    if store:
+    if store and lead:
         result_path = load_yaml("config/global.yml", key="path")["result"]
         table_path = result_path + params.data
         os.makedirs(table_path, exist_ok=True)
@@ -99,7 +156,8 @@ def multiple_run(params, store=False, save_path=None):
         if run < start_run:
             continue  # the new_run() above keeps the np.random stream aligned
         agent, state = _new_agent_and_state(params, params.seed + run)
-        test_loaders = prepare_test_loaders(data_continuum.test_data(), params, device)
+        agent.eval_mesh = mesh
+        test_loaders = rank_test_loaders(data_continuum.test_data(), params, device)
         resume_task = -1
         if resume_meta and run == start_run:
             state, meta = checkpoint.load_checkpoint(ckpt_dir, state)
@@ -114,12 +172,15 @@ def multiple_run(params, store=False, save_path=None):
                 if params.verbose:
                     print("-----------run {} training batch {}-------------".format(run, i))
                     print("size: {}, {}".format(x_train.shape, y_train.shape))
-                with tput.measure((x_train.shape[0] // params.batch) * params.batch, device):
-                    state = agent.train_learner(state, x_train, y_train)
-                if getattr(params, "buffer_tracker", False):
+                if lead:
+                    with tput.measure((x_train.shape[0] // params.batch) * params.batch, device):
+                        state = agent.train_learner(state, x_train, y_train)
+                if getattr(params, "buffer_tracker", False) and lead:
                     _check_buffer_tracker(state)
+                if mesh is not None:
+                    dp.broadcast_state(mesh, agent, state)
                 tmp_acc.append(agent.evaluate(state, test_loaders))
-                if ckpt_dir:
+                if ckpt_dir and lead:
                     checkpoint.save_checkpoint(ckpt_dir, state, {
                         "run": run, "task": i,
                         "tmp_acc": [np.asarray(a) for a in tmp_acc],
@@ -138,13 +199,13 @@ def multiple_run(params, store=False, save_path=None):
                 xs.append(x_train)
                 ys.append(y_train)
             print("----------run {} training-------------".format(run))
-            state = agent.train_learner(state, np.concatenate(xs, axis=0),
-                                        np.concatenate(ys, axis=0))
+            state = train_for_eval(agent, state, np.concatenate(xs, axis=0),
+                                   np.concatenate(ys, axis=0))
             accuracy_list.append(agent.evaluate(state, test_loaders))
 
     accuracy_array = np.array(accuracy_list)
     end = time.time()
-    if store:
+    if store and lead:
         result = {"time": end - start, "acc_array": accuracy_array}
         with open(table_path + "/" + save_path, "wb") as f:
             pickle.dump(result, f)

@@ -8,6 +8,12 @@ the stream with the winning params (`single_tune`), or on the whole stream
 again (`--train_val`, `single_tune_train_val`). With `--parallel_runs`, a
 grid of learning rates and weight decays trains every (grid point, val run)
 pair at once (experiment/parallel_tune.py).
+
+--n_devices W > 1 starts W ranks and fans every evaluation out over them,
+as experiment/run.py::multiple_run does: rank 0 trains, each rank holds its
+rows of the test sets, and rank 0 alone writes the results. With
+--parallel_runs the ranks' rows of the tuning test sets are gathered back
+and the stacked points are dealt to the ranks instead.
 """
 
 from __future__ import annotations
@@ -22,9 +28,11 @@ import numpy as np
 import torch
 
 from ocl_tpu_torch.config import finalize
-from ocl_tpu_torch.data import continuum, prepare_test_loaders
+from ocl_tpu_torch.data import continuum
 from ocl_tpu_torch.experiment.metrics import compute_performance, single_run_avg_end_fgt
-from ocl_tpu_torch.experiment.run import check_supported
+from ocl_tpu_torch.experiment.run import (check_supported, fan_out_mesh, rank_test_loaders,
+                                          start_ranks, train_for_eval)
+from ocl_tpu_torch.parallel import gather_batch
 from ocl_tpu_torch.registry import agents
 from ocl_tpu_torch.utils.io import check_ram_usage, load_yaml, save_csv
 
@@ -57,6 +65,10 @@ def tune_hyper(tune_data, tune_test_loaders, default_params, tune_params):
         )
 
         if supports_parallel_grid(default_params, tune_params):
+            mesh = fan_out_mesh(default_params)
+            if mesh is not None:   # every point evaluates on every row
+                tune_test_loaders = [tuple(gather_batch(mesh, t, 1) for t in loader)
+                                     for loader in tune_test_loaders]
             return tune_hyper_parallel(tune_data, tune_test_loaders, default_params,
                                        tune_params, grid, _merged)
         print("[parallel_runs] grid not vmappable (non-scalar hyperparams, "
@@ -69,10 +81,11 @@ def tune_hyper(tune_data, tune_test_loaders, default_params, tune_params):
         accuracy_list = []
         for run in range(final_params.num_runs_val):
             agent = agents[final_params.agent](final_params)
+            agent.eval_mesh = fan_out_mesh(default_params)
             state = agent.init_state(final_params.seed + 1000 + run)
             tmp_acc = []
             for x_train, y_train, labels in tune_data:
-                state = agent.train_learner(state, x_train, y_train)
+                state = train_for_eval(agent, state, x_train, y_train)
                 tmp_acc.append(agent.evaluate(state, tune_test_loaders))
             print("-----------tune run {}-----------avg_end_acc {}-----------"
                   .format(run, np.mean(tmp_acc[-1])))
@@ -85,6 +98,7 @@ def tune_hyper(tune_data, tune_test_loaders, default_params, tune_params):
 def _best_agent(default_params, best, run):
     final_params = _merged(default_params, best)
     agent = agents[final_params.agent](final_params)
+    agent.eval_mesh = fan_out_mesh(default_params)
     return agent, agent.init_state(final_params.seed + run)
 
 
@@ -93,7 +107,7 @@ def single_tune(data_continuum, default_params, tune_params, params_keep, tmp_ac
     with the best point (reference experiment/run.py:238-305); appends the
     accuracies on the later tasks' test sets to `tmp_acc`."""
     device = torch.device(default_params.device)
-    test_loaders_full = prepare_test_loaders(data_continuum.test_data(), default_params, device)
+    test_loaders_full = rank_test_loaders(data_continuum.test_data(), default_params, device)
     tune_test_loaders = test_loaders_full[: default_params.num_val]
     test_loaders = test_loaders_full[default_params.num_val:]
 
@@ -109,7 +123,7 @@ def single_tune(data_continuum, default_params, tune_params, params_keep, tmp_ac
                     print("Tuning is done. Best hyper parameter set is {}".format(best))
                     agent, state = _best_agent(default_params, best, run)
             else:
-                state = agent.train_learner(state, x_train, y_train)
+                state = train_for_eval(agent, state, x_train, y_train)
                 tmp_acc.append(agent.evaluate(state, test_loaders))
     else:
         xs, ys, tx, ty = [], [], [], []
@@ -125,7 +139,7 @@ def single_tune(data_continuum, default_params, tune_params, params_keep, tmp_ac
         params_keep.append(best)
         print("Tuning is done. Best hyper parameter set is {}".format(best))
         agent, state = _best_agent(default_params, best, run)
-        state = agent.train_learner(state, np.concatenate(xs), np.concatenate(ys))
+        state = train_for_eval(agent, state, np.concatenate(xs), np.concatenate(ys))
         tmp_acc.append(agent.evaluate(state, test_loaders))
 
 
@@ -134,7 +148,7 @@ def single_tune_train_val(data_continuum, default_params, tune_params, params_ke
     """Tune on the first num_val tasks, then restart the run and train on the
     whole stream (reference experiment/run.py:309-375)."""
     device = torch.device(default_params.device)
-    test_loaders_full = prepare_test_loaders(data_continuum.test_data(), default_params, device)
+    test_loaders_full = rank_test_loaders(data_continuum.test_data(), default_params, device)
     tune_test_loaders = test_loaders_full[: default_params.num_val]
     tune_data = []
     best = None
@@ -150,7 +164,7 @@ def single_tune_train_val(data_continuum, default_params, tune_params, params_ke
     data_continuum.reset_run()
     agent, state = _best_agent(default_params, best or {}, run)
     for x_train, y_train, labels in data_continuum:
-        state = agent.train_learner(state, x_train, y_train)
+        state = train_for_eval(agent, state, x_train, y_train)
         tmp_acc.append(agent.evaluate(state, test_loaders_full))
 
 
@@ -161,6 +175,11 @@ def multiple_run_tune_separate(default_params, tune_params, save_path):
     from ocl_tpu_torch.config import apply_runtime_flags
 
     check_supported(default_params)
+    ranks = start_ranks(multiple_run_tune_separate, default_params, tune_params, save_path)
+    if ranks is not None:
+        return ranks[0]
+    mesh = fan_out_mesh(default_params)
+    lead = mesh is None or mesh.rank == 0
     apply_runtime_flags(default_params)
     start = time.time()
     print("Setting up data stream")
@@ -176,7 +195,8 @@ def multiple_run_tune_separate(default_params, tune_params, save_path):
                                       default_params.cl_type, name)
             break
     print(table_path)
-    os.makedirs(table_path, exist_ok=True)
+    if lead:
+        os.makedirs(table_path, exist_ok=True)
     if not save_path:
         save_path = "{}_{}_{}.pkl".format(
             getattr(default_params, "model_name", default_params.agent),
@@ -210,8 +230,9 @@ def multiple_run_tune_separate(default_params, tune_params, save_path):
         "ram": check_ram_usage(),
         "best_params": params_keep,
     }
-    with open(os.path.join(table_path, save_path), "wb") as f:
-        pickle.dump(result, f)
+    if lead:
+        with open(os.path.join(table_path, save_path), "wb") as f:
+            pickle.dump(result, f)
     print("----------- Total {} run: {}s -----------".format(default_params.num_runs,
                                                              end - start))
     print("----------- Seed {} RAM: {}s -----------".format(default_params.seed, result["ram"]))
@@ -225,13 +246,19 @@ def multiple_run_tune(default_params, tune_params, save_path):
     from ocl_tpu_torch.config import apply_runtime_flags
 
     check_supported(default_params)
+    ranks = start_ranks(multiple_run_tune, default_params, tune_params, save_path)
+    if ranks is not None:
+        return ranks[0]
+    mesh = fan_out_mesh(default_params)
+    lead = mesh is None or mesh.rank == 0
     apply_runtime_flags(default_params)
     start = time.time()
     print("Setting up data stream")
     data_continuum = continuum(default_params.data, default_params.cl_type, default_params)
 
     table_path = load_yaml("config/global.yml", key="path")["tables"] + default_params.data
-    os.makedirs(table_path, exist_ok=True)
+    if lead:
+        os.makedirs(table_path, exist_ok=True)
     if not save_path:
         save_path = "{}_{}.csv".format(
             getattr(default_params, "model_name", default_params.agent),
@@ -259,14 +286,16 @@ def multiple_run_tune(default_params, tune_params, save_path):
         row["Avg_End_Fgt"] = single_run_avg_end_fgt(np.array(tmp_acc))
         row["Time"] = run_end - run_start
         rows.append(row)
-        save_csv(rows, table_path, save_path)
+        if lead:
+            save_csv(rows, table_path, save_path)
 
     avg_end_acc, avg_end_fgt, avg_acc, avg_bwtp, avg_fwt = compute_performance(
         np.array(accuracy_list))
     end = time.time()
     rows.append({"Run": "Final Result", "Avg_End_Acc": avg_end_acc,
                  "Avg_End_Fgt": avg_end_fgt, "Time": end - start})
-    save_csv(rows, table_path, save_path)
+    if lead:
+        save_csv(rows, table_path, save_path)
     print("----------- Total {} run: {}s -----------".format(default_params.num_runs, end - start))
     print("----------- Avg_End_Acc {} Avg_End_Fgt {} Avg_Acc {} Avg_Bwtp {} Avg_Fwt {}-----------"
           .format(avg_end_acc, avg_end_fgt, avg_acc, avg_bwtp, avg_fwt))

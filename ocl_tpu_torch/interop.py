@@ -39,6 +39,12 @@ decoder's transposed convs HWIO -> (I, O, kh, kw) flipped along H and W, and
 `enc3_w`'s rows and `dec3_w`'s columns (and `dec3_b`) from (h, w, C) to
 (C, h, w) order; dense kernels stay [in, out]. `cndpm_state_from_jax` /
 `cndpm_state_to_jax` carry its agent dict and per-slot optimizer state.
+
+`buffer_shards_from_jax` / `buffer_from_shards` carry a slot-sharded
+buffer (parallel/sharded_buffer.py): ocl_tpu's BufferState (numpy leaves)
+maps to W ranks' slices of slots [r M / W, (r + 1) M / W), each with the
+replicated counters and class counts, and the ranks' slices join back into
+ocl_tpu's whole buffer.
 """
 
 from __future__ import annotations
@@ -463,3 +469,30 @@ def cndpm_state_to_jax(agent, opt):
           "saturated_sleeps": np.int32(agent["saturated_sleeps"]),
           "sched_t": agent["sched_t"].cpu().numpy().astype(np.int32)}
     return ag, {part: _opt_part_to_jax(opt[part]) for part in ("g", "d")}
+
+
+_SLOT_LEAVES = ("imgs", "labels", "score")
+_REPLICATED = ("current_index", "n_seen_so_far", "class_counts")
+
+
+def buffer_shards_from_jax(buf, world_size: int) -> list:
+    """ocl_tpu's BufferState (numpy leaves, or an object with those
+    attributes) -> each rank's shard as a dict: `imgs`, `labels`, `score`
+    of its slots and the replicated `current_index`, `n_seen_so_far`,
+    `class_counts`. M must be a multiple of W."""
+    mem = np.asarray(buf.labels).shape[0]
+    if mem % world_size:
+        raise ValueError("{} buffer slots cannot be split over {} ranks: {} is not a multiple "
+                         "of {}".format(mem, world_size, mem, world_size))
+    per = mem // world_size
+    whole = {k: np.asarray(getattr(buf, k)) for k in _SLOT_LEAVES + _REPLICATED}
+    return [dict({k: whole[k][r * per:(r + 1) * per] for k in _SLOT_LEAVES},
+                 **{k: whole[k] for k in _REPLICATED}) for r in range(world_size)]
+
+
+def buffer_from_shards(shards: list) -> dict:
+    """The ranks' shards (as buffer_shards_from_jax gives them, in rank
+    order) -> ocl_tpu's whole buffer as a dict of numpy leaves."""
+    out = {k: np.concatenate([np.asarray(s[k]) for s in shards]) for k in _SLOT_LEAVES}
+    out.update({k: np.asarray(shards[0][k]) for k in _REPLICATED})
+    return out

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ocl_tpu_torch.parallel import dp
+
 
 class BatchNorm(nn.Module):
     """BatchNorm2d semantics that can leave masked rows out of the statistics.
@@ -31,6 +33,11 @@ class BatchNorm(nn.Module):
     not a host branch. `fold=False` normalises with the batch's statistics
     but leaves the running ones alone (a distillation teacher, MIR's scoring
     forward on virtual weights).
+
+    Inside a data-parallel step (parallel/dp.py) the rows are this rank's
+    share of the global batch, and the count, Σw·x and Σw·(x - mean)² are
+    summed over the ranks: the global batch's statistics, as ocl_tpu's SPMD
+    program computes them.
     """
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
@@ -47,21 +54,26 @@ class BatchNorm(nn.Module):
         if train:
             dims = (0, 2, 3)
             empty = None
-            if w is None:
+            if w is None and dp.active() is None:
                 n = float(x.numel() // x.shape[1])
                 mean = xf.mean(dims)
                 var = (xf - mean[:, None, None]).square().mean(dims)
             else:
+                # weighted rows; in a data-parallel step the count, Σw·x and
+                # Σw·(x - mean)² are summed over the ranks (dp.batch_sum,
+                # differentiable; the identity outside one)
                 spatial = x.shape[2] * x.shape[3]
-                wf = w.float().reshape(-1, 1, 1, 1)
-                rows = wf.sum()
-                empty = rows == 0
-                n = torch.clamp(rows * spatial, min=1.0)
-                mean = (xf * wf).sum(dims) / n
-                var = ((xf - mean[:, None, None]).square() * wf).sum(dims) / n
+                wf = (torch.ones(x.shape[0], device=x.device) if w is None
+                      else w.float()).reshape(-1, 1, 1, 1)
+                tot = dp.batch_sum(torch.cat([(wf.sum() * spatial).reshape(1),
+                                              (xf * wf).sum(dims)]))
+                empty = tot[0] == 0
+                n = torch.clamp(tot[0], min=1.0)
+                mean = tot[1:] / n
+                var = dp.batch_sum(((xf - mean[:, None, None]).square() * wf).sum(dims)) / n
             if fold:
                 with torch.no_grad():
-                    if w is None:
+                    if isinstance(n, float):
                         unbiased = var * (n / max(n - 1.0, 1.0))
                     else:
                         unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))

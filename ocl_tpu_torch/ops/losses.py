@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ocl_tpu_torch.parallel import dp
+
 NEG_INF = -1e30
 
 
@@ -47,7 +49,8 @@ def labels_trick_ce(logits, labels, mask=None):
     onehot = F.one_hot(labels.long(), logits.shape[-1]).to(torch.float32)
     if mask is not None:
         onehot = onehot * mask[:, None].to(torch.float32)
-    present = onehot.sum(0) > 0
+    # in a data-parallel step, the classes of the global batch's valid rows
+    present = dp.rank_sum(onehot.sum(0)) > 0
     return cross_entropy(logits, labels, mask=mask, class_mask=present)
 
 

@@ -14,9 +14,11 @@ its weights (it reads high on batch statistics).
         --agent ER --update GSS --num_runs 3 --parallel_runs True ...
 
 The flags after `--` are general_main's; the runs take cuDNN's and
-torch's default algorithms. `--seed_step K` runs repeat i at seed + i K.
+torch's default algorithms, or with `--deterministic` deterministic ones.
+`--seed_step K` runs repeat i at seed + i K. A task with no step (CORe50's
+cut trees) is not counted as read low.
 One line a repeat; with `--json PATH`, every figure as one JSON object
-there. `deterministic()` serves chip_smoke.py's phase 18.
+there. `deterministic()` serves chip_smoke.py's phases 18, 22 (c) and 24.
 """
 
 from __future__ import annotations
@@ -210,6 +212,13 @@ def summarise(acc, rec):
     return out
 
 
+def reads_low(runs):
+    """[(run, task)] of summarise()'s lanes that read <= LOW on a task they
+    trained (a task with no step is left out)."""
+    return [(r, t) for r, lanes in enumerate(runs) for t, lane in enumerate(lanes)
+            if lane["own"] <= LOW and lane["max"] is not None]
+
+
 def main(argv=None):
     from ocl_tpu_torch.config import build_parser
 
@@ -218,20 +227,22 @@ def main(argv=None):
     parser.add_argument("--seed_step", type=int, default=0,
                         help="repeat i runs at --seed + i * seed_step (0: every repeat at "
                              "--seed, so that only the card's own order of sums differs)")
+    parser.add_argument("--deterministic", action="store_true",
+                        help="run every repeat under deterministic algorithms (cuDNN and torch)")
     parser.add_argument("--json", default=None, help="write every figure here as JSON")
     parser.add_argument("flags", nargs=argparse.REMAINDER, help="-- general_main's flags")
     args = parser.parse_args(argv)
     flags = args.flags[1:] if args.flags[:1] == ["--"] else args.flags
-    figures = {"flags": flags, "repeats": []}
+    figures = {"flags": flags, "deterministic": args.deterministic, "repeats": []}
     for i in range(args.repeats):
         params = build_parser().parse_args(flags)
         params.seed += i * args.seed_step
         t0 = time.time()
-        acc, rec = repeat_once(params)
+        with deterministic() if args.deterministic else contextlib.nullcontext():
+            acc, rec = repeat_once(params)
         runs = summarise(acc, rec)
         secs = time.time() - t0
-        low = [(r, t) for r, lanes in enumerate(runs) for t, lane in enumerate(lanes)
-               if lane["own"] <= LOW]
+        low = reads_low(runs)
         print("[spread] repeat {} (seed {}, {:.1f} s): each run's own-task accuracies {}; "
               "finite {}; mislabelled slots {}; reads <= {} at (run, task) {}".format(
                   i, params.seed, secs,

@@ -232,14 +232,61 @@ def test_cli_error_analysis_writes_confusion(tmp_path):
     assert set(correct_lb) == {0, 1} and set(predict_lb) <= {-1, 0, 1}
 
 
-@pytest.mark.parametrize("flags", [dict(n_devices=2)])
-def test_unported_options_raise(flags):
+def stored_accuracies(tmp_path, slow_lead=None, **flags):
+    """multiple_run's --store accuracy matrix, run in `tmp_path` on one
+    torch thread (a rank's share of one thread is one thread too). With
+    `slow_lead` (delay_s, group_timeout_s), two ranks run
+    torch_parallel_workers.py::slow_lead_run instead."""
+    import pickle
+
+    from ocl_tpu_torch import parallel
     from ocl_tpu_torch.experiment.run import multiple_run
 
-    params = default_params(data="synthetic", nf=4, mem_size=20, synthetic_size=20,
-                            num_tasks=2, verbose=False, device="cpu", **flags)
-    with pytest.raises(NotImplementedError):
-        multiple_run(params)
+    (tmp_path / "config").mkdir(parents=True)
+    (tmp_path / "config" / "global.yml").write_text(
+        "path:\n  result: {}/\n  tables: {}/\n".format(tmp_path / "result", tmp_path))
+    params = default_params(data="synthetic", nf=4, mem_size=20, synthetic_size=20, num_tasks=2,
+                            num_runs=2, verbose=False, device="cpu", **flags)
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        with torch_threads(1):
+            if slow_lead is None:
+                multiple_run(params, store=True, save_path="acc.pkl")
+            else:
+                import torch_parallel_workers as workers
+
+                parallel.launch(workers.slow_lead_run, (params,) + tuple(slow_lead), 2, "cpu")
+        with open(tmp_path / "result" / "synthetic" / "acc.pkl", "rb") as f:
+            return pickle.load(f)["acc_array"]
+    finally:
+        os.chdir(cwd)
+
+
+@pytest.fixture(scope="module")
+def one_process_accuracies(tmp_path_factory):
+    acc = stored_accuracies(tmp_path_factory.mktemp("one"))
+    assert acc.shape == (2, 2, 2)
+    return acc
+
+
+def test_n_devices_2_matches_one_process(tmp_path, monkeypatch, one_process_accuracies):
+    """--n_devices 2 starts two ranks: rank 0 trains, the evaluation fans
+    out over both; the accuracy matrix is the single process's, exactly.
+    The ranks get 120 s, then fail the test."""
+    monkeypatch.setattr("ocl_tpu_torch.parallel.mesh.LAUNCH_TIMEOUT_S", 120)
+    two = stored_accuracies(tmp_path, n_devices=2)
+    np.testing.assert_array_equal(two, one_process_accuracies)
+
+
+def test_n_devices_2_outwaits_the_group_timeout(tmp_path, monkeypatch, one_process_accuracies):
+    """Rank 0 trains its first task for longer than the group's collective
+    timeout (a 5 s sleep against 2 s) while rank 1 waits to evaluate: the
+    wait is not a collective, so the run ends, with the single process's
+    accuracy matrix."""
+    monkeypatch.setattr("ocl_tpu_torch.parallel.mesh.LAUNCH_TIMEOUT_S", 120)
+    two = stored_accuracies(tmp_path, slow_lead=(5.0, 2.0), n_devices=2)
+    np.testing.assert_array_equal(two, one_process_accuracies)
 
 
 def test_debug_nans_raises_on_non_finite_loss():

@@ -61,6 +61,23 @@ def test_repeat_matches_the_runner_and_restores_it(tmp_path, monkeypatch):
     assert len(rec["tasks"]) == 4 and rec["tasks"][-1]["end"] == len(rec["loss"])
 
 
+def test_deterministic_repeats_agree(tmp_path, monkeypatch):
+    """--deterministic runs each repeat under deterministic algorithms and
+    says so in the JSON; the repeats of one seed read alike."""
+    monkeypatch.chdir(tmp_path)
+    figures = spread.main(["--repeats", "2", "--deterministic", "--"] + FLAGS)
+    assert figures["deterministic"]
+    first, second = figures["repeats"]
+    assert first["runs"] == second["runs"]
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+def test_a_task_with_no_step_is_not_read_low():
+    lane = {"own": 0.0, "max": 1.0}
+    runs = [[lane, dict(lane, max=None), dict(lane, own=0.9)], [dict(lane, own=0.5)]]
+    assert spread.reads_low(runs) == [(0, 0), (1, 0)]
+
+
 def test_mislabelled_counts_slots_off_their_class():
     params = build_parser().parse_args(FLAGS)
     centres = spread.synthetic_classes(params)
