@@ -136,8 +136,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                launches and each (n, m, d) it ran at, images/s, each task's
                accuracy on its own test set after training it (every one
                above 0.5); (b) Mini-ImageNet's three cache pickles at full
-               size with aser_1k_mini.yml, task 0 cut to MINI_STEPS (200)
-               of its 500 steps, 200 images of each class (the script's
+               size with aser_1k_mini.yml, task 0 cut to MINI_STEPS (150)
+               of its 500 steps, 150 images of each class (the script's
                time); (c) CORe50 ni
                (paths, LUP and labels pickles, 4,000 JPEGs at 128 px
                decoded once into the bin cache, then read from it) with
@@ -205,7 +205,20 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
                equal to the unsharded eval; (e) phase 21 (a)'s 3 stacked
                fused-ER runs dealt to the 2 ranks, each run above 0.5; (f)
                the DP ER step under NCCL at world size 1, and NCCL's answer
-               to two ranks on one card.
+               to two ranks on one card; (g) in (b)'s launch, 3 DP steps
+               each of ER + MIR (two-pass, subsample 50), ER + mem_match,
+               ER + MIR retrieval + ASER update, AGEM + ASER retrieval,
+               EWC++, LwF, ER with kd_trick + labels_trick (a teacher from
+               other weights), SCR with scr_1k's flags and the ASER update,
+               at nf 20 over (b)'s slot-sharded memory of 1,000: each first
+               step held against one process's (parameters within 1e-3,
+               current_index and labels equal; EWC++'s temporary Fisher
+               within 1e-3 of its largest entry), the ranks' checksums
+               equal every step, finite losses, on the ASER paths K1's
+               launches a step on each rank as the path needs them (1 for
+               the ASER update, 2 for ASER's asvm retrieval) and K1 against
+               its plain version at every shape it ran; each configuration's
+               step ms, collectives a step and their host ms.
 Then one JSON line of kernel figures (K1's with its batched figures, the
 data runs', the bf16 runs' and the DP runs' launches and shapes), the script's total
 seconds, and last the result line {"ok": true, "device": {...}}.
@@ -249,13 +262,13 @@ MAIN_FLAGS = ["--device", "cuda", "--data", "synthetic", "--agent", "ER",
 # phase 4's run and phase 23 (a)'s: 2 tasks of 5 classes x 200 images, 100
 # steps a task (cut from MAIN_FLAGS' 5 tasks x 100 steps: the script's time)
 MAIN_RUN_FLAGS = MAIN_FLAGS + ["--num_tasks", "2", "--synthetic_size", "200"]
-PROFILE_STEPS = 20
+PROFILE_STEPS = 10    # cut from 20: the script's time
 # phases 6-12: (tag, label, flags over plain ER's, tasks, profiled steps).
 # Reading a trace back takes time in proportion to its events, thousands a
 # step, so phases 7-12 profile fewer steps than the fused schedule's
 # PROFILE_STEPS.
 ER_FLAGS = MAIN_FLAGS + ["--update", "random", "--retrieve", "random"]
-FAMILY_PROFILE_STEPS = 5
+FAMILY_PROFILE_STEPS = 3    # cut from 5: the script's time
 # the script's time: fused ER, MIR, AGEM, the tricks, iCaRL and SCR stream
 # 250 images a class (50 steps a task) of the 500; GSS keeps 500 (its check
 # needs the buffer full in task 1), EWC++ and LwF at lr 0.01 too
@@ -324,7 +337,7 @@ STACKED_FLAGS = ["--device", "cuda", "--data", "synthetic", "--agent", "ER",
                  "--verbose", "False"]
 STACKED_ASER_FLAGS = STACKED_FLAGS + ["--update", "ASER", "--retrieve", "ASER", "--aser_type",
                                       "asvm", "--k", "3", "--n_smp_cls", "2.0"]
-STACKED_PROFILE_STEPS = 5
+STACKED_PROFILE_STEPS = 3    # cut from 5: the script's time
 # (e) the other strategies, 3 runs stacked: 2 tasks x 100 steps (STRATEGY_SIZE
 # images a class) into a buffer of 200 (GSS then takes its gated
 # replacements). Shorter tasks end inside the loss spikes of SGD at lr 0.1:
@@ -353,17 +366,17 @@ CVPR_GENERAL = "config_CVPR/general.yml"
 CIFAR100_DATA = "config_CVPR/data/cifar100/cifar100_nc.yml"
 MINI_DATA = "config_CVPR/data/mini_imagenet/mini_imagenet_nc.yml"
 MINI_RECIPE = "config_CVPR/agent/aser/aser_1k_mini.yml"
-# (b) trains MINI_STEPS of task 0's 500 steps (200 of each class's 500
+# (b) trains MINI_STEPS of task 0's 500 steps (150 of each class's 500
 # images, evenly spaced, in the stream's order; the buffer of 1,000 fills in
 # the first 100 steps; the script's time), in fp32, then in bf16 for phase
 # 23 (d)
-MINI_STEPS = 200
+MINI_STEPS = 150    # cut from 200: the script's time
 CORE50_DATA = "config/data/core50/core50_ni.yml"
 CIFAR100_TRAIN_PER_CLASS = 50       # of 500: the cut
 CIFAR100_TEST_PER_CLASS = 100       # as published
 CORE50_TRAIN, CORE50_TEST, CORE50_CLASSES = 3000, 1000, 50   # of ~15,000 and 44,972
 CORE50_FULL_TEST = 44972
-DATA_PROFILE_STEPS = 20
+DATA_PROFILE_STEPS = 10    # cut from 20: the script's time
 # (d) OpenLORIS's occlusion factor (the one the flag CLI names), 9 tasks of
 # OPENLORIS_OBJECTS objects, OPENLORIS_TRAIN train and OPENLORIS_TEST test
 # images an object a task; 10% of a task's train images go to its val set.
@@ -1934,9 +1947,9 @@ def run_data_phase(torch, distance, card):
         write_s = time.time() - t0
         params = recipe_params(CVPR_GENERAL, MINI_DATA, MINI_RECIPE, num_runs=1)
         print("[data] (b) Mini-ImageNet: {} + {} + {}, cut: num_runs 10 -> 1, task 0 of 10, {} "
-              "steps of 500 (200 images of each class's 500); "
+              "steps of 500 ({} images of each class's 500); "
               "the cache pickles at full size (60,000 images, written in {:.1f} s)".format(
-                  CVPR_GENERAL, MINI_DATA, MINI_RECIPE, MINI_STEPS, write_s))
+                  CVPR_GENERAL, MINI_DATA, MINI_RECIPE, MINI_STEPS, MINI_STEPS, write_s))
         out["mini_imagenet"] = run_data_task(torch, distance, params, "(b) Mini-ImageNet",
                                              MINI_STEPS)
         require(out["mini_imagenet"]["launches"] > 0,
@@ -2269,49 +2282,105 @@ def run_bf16_phase(torch, distance, card, fp32, device):
 # CN-DPM wake step, the softmax and NCM fan-out on SCR's model, the grid
 # tune); (e) phase 21 (a)'s 3 stacked fused-ER runs dealt to 2 ranks; (f) the
 # DP ER step under NCCL at world size 1, and NCCL's answer to two ranks on
-# one card
+# one card; (g) in (b)'s launch, DP_FAMILY's agents and strategies over
+# (b)'s memory, DP_FAMILY_STEPS steps each, the first beside one process's
 DP_RANKS = 2
 DP_CLI_FLAGS = MAIN_FLAGS + ["--num_tasks", "2", "--synthetic_size", "100",
                              "--n_devices", str(DP_RANKS)]
 DP_FLAGS = MAIN_FLAGS + ["--num_tasks", "2"]
-DP_STEPS = 12
-DP_PROFILE_STEPS = 4
+DP_STEPS = 9    # cut from 12: the script's time
+DP_PROFILE_STEPS = 3    # cut from 4: the script's time
 DP_DRAW_SEED = 24
 MAX_MARGIN = 1e-4
+# phase 24 (g): (tag, flags over DP_FLAGS, K1 launches a step). The ASER
+# update launches K1 once a step, ASER's asvm retrieval twice (ER + ASER's
+# 3 in (b) are both); scr_1k's flags as SCR's (phase 15)
+DP_FAMILY_STEPS = 3
+RANDOM_RANDOM = ["--update", "random", "--retrieve", "random"]
+DP_FAMILY = [
+    ("er_mir", ["--update", "random", "--retrieve", "MIR", "--subsample", "50"], 0),
+    ("er_mem_match", ["--update", "random", "--retrieve", "mem_match"], 0),
+    ("er_mir_aser", ["--update", "ASER", "--retrieve", "MIR", "--subsample", "50"], 1),
+    ("agem_aser", ["--agent", "AGEM", "--update", "random", "--retrieve", "ASER"], 2),
+    ("ewc", ["--agent", "EWC", "--learning_rate", "0.01"] + RANDOM_RANDOM, 0),
+    ("lwf", ["--agent", "LWF", "--learning_rate", "0.01"] + RANDOM_RANDOM, 0),
+    ("er_kd_labels", RANDOM_RANDOM + ["--kd_trick", "True", "--labels_trick", "True"], 0),
+    ("scr_aser", SCR[2][:-len(HALF)] + ["--update", "ASER", "--retrieve", "random"], 1),
+]
+_DP_TASKS = {}   # the first two tasks of a stream, by its flags
 
 
-def dp_setup(torch, device, flags):
-    """Phase 24 (b)'s agent, state, ctx, batches and draws, alike in every
-    process: the weights of init_state(seed), a memory of 1,000 drawn from
-    task 0 (so every step takes ASER's SV paths), DP_STEPS batches of task 1,
-    and each step's draws from a generator of its own."""
+def dp_tasks(params):
+    """(x0, y0), (x1, y1): the first two tasks of the stream of `params`,
+    made once a process."""
+    import numpy as np
+
+    from ocl_tpu_torch.data import continuum
+
+    key = (params.data, params.cl_type, params.num_tasks, params.synthetic_size, params.seed)
+    if key not in _DP_TASKS:
+        np.random.seed(params.seed)
+        stream = continuum(params.data, params.cl_type, params)
+        np.random.seed(params.seed)
+        stream.new_run()
+        (x0, y0, _), (x1, y1, _) = next(stream), next(stream)
+        _DP_TASKS[key] = (x0, y0), (x1, y1)
+    return _DP_TASKS[key]
+
+
+def dp_draws(agent, g, host, b):
+    """One step's draws of `agent` (as its `step` takes them) from generator
+    `g` and, for SCR's jitter order, `host`; None for EWC++ and LwF."""
+    if hasattr(agent, "draw"):
+        return agent.draw(g, b)
+    if not hasattr(agent, "retrieve"):
+        return None
+    from ocl_tpu_torch.ops.augment import draw_scr_transform
+
+    rows = agent.params.eps_mem_batch + b
+    return {"iters": [{"retrieve": agent.retrieve.draw(g, b),
+                       "aug": draw_scr_transform(g, host, rows, agent.image_hw)}
+                      for _ in range(int(agent.params.mem_iters))],
+            "update": agent.update.draw(g, b)}
+
+
+def dp_setup(torch, device, flags, steps=DP_STEPS):
+    """Phase 24 (b)'s and (g)'s agent, state, ctx, batches and draws, alike
+    in every process: the weights of init_state(seed), a memory of 1,000
+    drawn from task 0 (so every ASER step takes its SV paths), `steps`
+    batches of task 1 at task_seen 1, each step's draws from a generator of
+    its own; a distillation teacher with the weights of the next seed,
+    switched on."""
+    import random
+
     import numpy as np
 
     from ocl_tpu_torch.config import build_parser, finalize
-    from ocl_tpu_torch.data import continuum
     from ocl_tpu_torch.registry import agents
 
     params = finalize(build_parser().parse_args(flags + ["--device", str(device)]))
-    np.random.seed(params.seed)
-    stream = continuum(params.data, params.cl_type, params)
-    np.random.seed(params.seed)
-    stream.new_run()
-    (x0, y0, _), (x1, y1, _) = next(stream), next(stream)
-    agent = agents["ER"](params)
+    (x0, y0), (x1, y1) = dp_tasks(params)
+    agent = agents[params.agent](params)
+    teacher = agent.init_state(params.seed + 1).model if agent.needs_kd else None
     state = agent.init_state(params.seed)
+    if teacher is not None:
+        state.agent["teacher"].load_state_dict(teacher.state_dict())
+        state.agent["has_teacher"].fill_(1.0)
     buf = state.buffer
-    pick = np.random.RandomState(0).permutation(len(y0))[: buf.mem_size]
-    buf.imgs.copy_(torch.from_numpy(x0[pick]))
-    buf.labels.copy_(torch.from_numpy(y0[pick].astype(np.int64)))
-    buf.class_counts.copy_(torch.bincount(buf.labels, minlength=buf.class_counts.shape[0]))
-    buf.current_index, buf.n_seen_so_far = buf.mem_size, len(y0)
+    if buf is not None:
+        pick = np.random.RandomState(0).permutation(len(y0))[: buf.mem_size]
+        buf.imgs.copy_(torch.from_numpy(x0[pick]))
+        buf.labels.copy_(torch.from_numpy(y0[pick].astype(np.int64)))
+        buf.class_counts.copy_(torch.bincount(buf.labels, minlength=buf.class_counts.shape[0]))
+        buf.current_index, buf.n_seen_so_far = buf.mem_size, len(y0)
     agent.task_seen, agent.old_labels = 1, sorted(set(int(v) for v in y0))
     ctx = agent.before_train(y1)
     b = params.batch
-    xs = torch.from_numpy(x1[: DP_STEPS * b]).reshape(DP_STEPS, b, *x1.shape[1:]).to(device)
-    ys = torch.from_numpy(y1[: DP_STEPS * b].astype(np.int64)).reshape(DP_STEPS, b).to(device)
+    xs = torch.from_numpy(x1[: steps * b]).reshape(steps, b, *x1.shape[1:]).to(device)
+    ys = torch.from_numpy(y1[: steps * b].astype(np.int64)).reshape(steps, b).to(device)
     g = torch.Generator(device=device).manual_seed(DP_DRAW_SEED)
-    draws = [agent.draw(g, b) for _ in range(DP_STEPS)]
+    host = random.Random(DP_DRAW_SEED)
+    draws = [dp_draws(agent, g, host, b) for _ in range(steps)]
     return agent, state, ctx, xs, ys, draws
 
 
@@ -2334,11 +2403,89 @@ def sync(torch, device):
         torch.cuda.synchronize(device)
 
 
+def first_step_state(torch, agent, state, loss):
+    """What phase 24 (g) holds a first step by: weights, buffer labels and
+    counter (whole), the loss, EWC++'s temporary Fisher."""
+    from ocl_tpu_torch.parallel.sharded_buffer import ShardedBuffer, gather_buffer
+
+    out = {"sd": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+           "loss": loss}
+    buf = state.buffer
+    if buf is not None:
+        buf = gather_buffer(buf) if isinstance(buf, ShardedBuffer) else buf
+        out["labels"], out["current_index"] = buf.labels.cpu().clone(), buf.current_index
+    if isinstance(state.agent, dict) and "tmp_fisher" in state.agent:
+        out["fisher"] = {k: v.cpu().clone() for k, v in state.agent["tmp_fisher"].items()}
+    return out
+
+
+def dp_family_rank(torch, mesh, flags):
+    """Phase 24 (g) in one rank: DP_FAMILY_STEPS DP steps of each of
+    DP_FAMILY over a slot-sharded buffer, the first under deterministic
+    algorithms; their figures, K1's launches (the count set to 0 just
+    before each configuration's steps, read just after) and K1 against its
+    plain version at the shapes they gave it."""
+    from ocl_tpu_torch.ops import distance, knn_sv
+    from ocl_tpu_torch.parallel import dp
+    from ocl_tpu_torch.parallel.sharded_buffer import shard_buffer
+    from ocl_tpu_torch.tools.spread import deterministic
+
+    kernel = knn_sv.pairwise_sqdist
+    out = {}
+    for tag, extra, _ in DP_FAMILY:
+        agent, state, ctx, xs, ys, draws = dp_setup(torch, mesh.device, flags + extra,
+                                                    DP_FAMILY_STEPS)
+        if state.buffer is not None:
+            state.buffer = shard_buffer(state.buffer, mesh)
+        task = dp.make_dp_train_task(agent, mesh)
+        shapes = {}
+
+        def recording(a, b):
+            shapes.setdefault((a.shape[0], b.shape[0], a.shape[1]), (a.clone(), b.clone()))
+            return kernel(a, b)
+
+        knn_sv.pairwise_sqdist = recording
+        distance.pairwise_sqdist.launches = 0
+        try:
+            with deterministic():
+                state, m = task(state, ctx, xs[:1], ys[:1], draws[:1])
+            losses = m["loss"].tolist()
+            first = first_step_state(torch, agent, state, losses[0])   # gathers: every rank
+            fig = {"first": first if mesh.rank == 0 else None}
+            sums = [model_checksum(torch, state.model)]
+            sync(torch, mesh.device)
+            calls, secs, t0 = mesh.calls, mesh.seconds, time.perf_counter()
+            for i in range(1, DP_FAMILY_STEPS):
+                state, m = task(state, ctx, xs[i:i + 1], ys[i:i + 1], draws[i:i + 1])
+                losses += m["loss"].tolist()
+                sums.append(model_checksum(torch, state.model))
+            sync(torch, mesh.device)
+            timed = DP_FAMILY_STEPS - 1
+            fig.update(step_ms=(time.perf_counter() - t0) * 1e3 / timed,
+                       collectives=(mesh.calls - calls) / timed,
+                       collective_ms=(mesh.seconds - secs) * 1e3 / timed,
+                       launches=distance.pairwise_sqdist.launches, losses=losses)
+        finally:
+            knn_sv.pairwise_sqdist = kernel
+        every = mesh.all_gather(torch.tensor([sums], dtype=torch.float64, device=mesh.device))
+        fig["checksums_agree"] = bool((every == every[0]).all())
+        errs = []
+        for (n, mm, d), (a, b) in sorted(shapes.items()):
+            got = distance.pairwise_sqdist(a, b)
+            sync(torch, mesh.device)
+            errs.append(((n, mm, d),) + scaled_errors(torch, a, b, got,
+                                                      distance.pairwise_sqdist_plain(a, b)))
+        fig["kernel_checks"] = errs
+        out[tag] = fig
+    return out
+
+
 def dp_rank(flags, nf, stacked_flags, workdir):
-    """Phase 24 (b)-(e) in one rank: the DP ER + ASER steps of `flags`,
-    their figures and checks, K1 against its plain version at the shapes
-    they gave it, tools/dryrun.py's patterns at base width `nf`, then the
-    stacked runs of `stacked_flags` dealt to the ranks, in `workdir`."""
+    """Phase 24 (b)-(e) and (g) in one rank: the DP ER + ASER steps of
+    `flags`, their figures and checks, K1 against its plain version at the
+    shapes they gave it, (g)'s configurations over `flags`,
+    tools/dryrun.py's patterns at base width `nf`, then the stacked runs of
+    `stacked_flags` dealt to the ranks, in `workdir`."""
     import torch
 
     from ocl_tpu_torch import parallel
@@ -2410,6 +2557,9 @@ def dp_rank(flags, nf, stacked_flags, workdir):
         errs.append(((n, mm, d),) + scaled_errors(torch, a, b, got,
                                                   distance.pairwise_sqdist_plain(a, b)))
     out["kernel_checks"] = errs
+    t0 = time.time()
+    out["family"] = dp_family_rank(torch, mesh, flags)
+    out["family_s"] = time.time() - t0
     out["dryrun"] = dryrun.run_patterns(nf)
 
     from ocl_tpu_torch.config import build_parser
@@ -2463,9 +2613,69 @@ def top2_margin(torch, logits):
     return top[:, 0] - top[:, 1]
 
 
+def check_dp_family(torch, device, card, dp_flags, ranks):
+    """Phase 24 (g)'s prints and gates, each configuration's first DP step
+    held against one process's; returns each configuration's figures."""
+    from ocl_tpu_torch.tools.spread import deterministic
+
+    out = {}
+    for tag, extra, per_step in DP_FAMILY:
+        agent, state, ctx, xs, ys, draws = dp_setup(torch, device, dp_flags + extra,
+                                                    DP_FAMILY_STEPS)
+        with deterministic():
+            agent.step(state, ctx, xs[0], ys[0], draws=draws[0])
+        one = first_step_state(torch, agent, state, None)
+        figs = [r["family"][tag] for r in ranks]
+        first = figs[0]["first"]
+        diff = max(float((v - first["sd"][k]).abs().max()) for k, v in one["sd"].items())
+        buffer_equal = "labels" not in one or (
+            torch.equal(one["labels"], first["labels"])
+            and one["current_index"] == first["current_index"])
+        fisher = None
+        if "fisher" in one:
+            scale = max(float(v.abs().max()) for v in one["fisher"].values())
+            fisher = max(float((v - first["fisher"][k]).abs().max())
+                         for k, v in one["fisher"].items()) / max(scale, 1e-30)
+        out[tag] = {"param_diff": diff, "fisher_rel": fisher, "ranks": [
+            {k: f[k] for k in ("step_ms", "collectives", "collective_ms", "launches",
+                               "kernel_checks", "checksums_agree", "losses")} for f in figs]}
+        print("[dp] (g) {} ({} ranks sharing one card, {}): {:.1f} ms a DP step, {:.0f} "
+              "collectives a step ({:.1f} ms in them) on rank 0 ({:.1f} / {:.0f} / {:.1f} on "
+              "rank 1); losses {}; first step against one process's: max parameter "
+              "difference {:.3e}, buffer equal {}{}; K1 launches a rank {} in {} steps "
+              "(expected {} a step); K1 against plain at {}; checksums agree {}".format(
+                  tag, DP_RANKS, card, figs[0]["step_ms"], figs[0]["collectives"],
+                  figs[0]["collective_ms"], figs[-1]["step_ms"], figs[-1]["collectives"],
+                  figs[-1]["collective_ms"], [round(v, 4) for v in figs[0]["losses"]], diff,
+                  buffer_equal, "" if fisher is None else
+                  ", temporary Fisher within {:.2e} of its largest entry".format(fisher),
+                  [f["launches"] for f in figs], DP_FAMILY_STEPS, per_step,
+                  [(list(sh), "{:.2e}".format(a), "{:.2e}".format(q))
+                   for sh, a, q in figs[0]["kernel_checks"]],
+                  all(f["checksums_agree"] for f in figs)))
+        require(diff < 1e-3 and buffer_equal and (fisher is None or fisher < 1e-3),
+                "(g) {}: the DP step departs from one process's".format(tag))
+        for r, f in enumerate(figs):
+            require(f["checksums_agree"], "(g) {}: the ranks' parameters differ".format(tag))
+            require(all(math.isfinite(v) for v in f["losses"]),
+                    "(g) {}: a non-finite loss on rank {}".format(tag, r))
+            require(device.type != "cuda" or f["launches"] == per_step * DP_FAMILY_STEPS,
+                    "(g) {}: rank {} launched K1 {} times in {} steps, not {} a step".format(
+                        tag, r, f["launches"], DP_FAMILY_STEPS, per_step))
+            require(bool(f["kernel_checks"]) == (per_step > 0),
+                    "(g) {}: K1 ran at shapes {} on rank {}".format(
+                        tag, [c[0] for c in f["kernel_checks"]], r))
+            for shape, abs_err, scaled in f["kernel_checks"]:
+                require(math.isfinite(abs_err) and abs_err <= MAX_ABS and scaled <= MAX_REL,
+                        "(g) {}: K1 disagrees with plain at {} on rank {}".format(tag, shape, r))
+    print("[dp] (g) {} configurations in {:.1f} s on the ranks".format(
+        len(DP_FAMILY), ranks[0]["family_s"]))
+    return out
+
+
 def run_dp_phase(torch, card, device, cli_flags=DP_CLI_FLAGS, dp_flags=DP_FLAGS,
                  stacked_flags=STACKED_FLAGS, nf=20):
-    """Phase 24 (a)-(f) (see DP_CLI_FLAGS' comment); returns its figures.
+    """Phase 24 (a)-(g) (see DP_CLI_FLAGS' comment); returns its figures.
     The flags and `nf` are the card's; a rehearsal on the CPU gives its own
     (and leaves (f), which needs NCCL, to the card)."""
     import numpy as np
@@ -2565,6 +2775,7 @@ def run_dp_phase(torch, card, device, cli_flags=DP_CLI_FLAGS, dp_flags=DP_FLAGS,
               diff, r0["current_index"], state.buffer.current_index, labels_equal))
     require(diff < 1e-3 and labels_equal and r0["current_index"] == state.buffer.current_index,
             "the DP step departs from one rank's step")
+    out["family"] = check_dp_family(torch, device, card, dp_flags, ranks)
     dr = ranks[0]["dryrun"]
     print("[dp] (c)-(d) the dry run's patterns at nf {} on {} ranks: parameters agree {}, losses "
           "{}, NCM fan-out / unsharded accuracy on SCR's model {}; {:.1f} s".format(
@@ -2826,7 +3037,15 @@ def main():
                     "max_abs_err": max(a for r in dp_figs["step"]["ranks"]
                                        for _, a, _ in r["kernel_checks"]),
                     "shapes": [list(s) for s, _, _ in
-                               dp_figs["step"]["ranks"][0]["kernel_checks"]]}}]}))
+                               dp_figs["step"]["ranks"][0]["kernel_checks"]],
+                    "family": {tag: {"steps": DP_FAMILY_STEPS,
+                                     "launches_per_rank": [r["launches"] for r in f["ranks"]],
+                                     "shapes": [list(c[0]) for c in f["ranks"][0]["kernel_checks"]],
+                                     "max_abs_err": max((c[1] for r in f["ranks"]
+                                                         for c in r["kernel_checks"]),
+                                                        default=None)}
+                               for tag, f in dp_figs["family"].items()
+                               if f["ranks"][0]["kernel_checks"]}}}]}))
     print("[total] chip_smoke.py {:.1f} s ({})".format(time.time() - script_t0, card))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

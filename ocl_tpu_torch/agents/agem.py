@@ -8,6 +8,10 @@ memory pass runs from the second task on, when the buffer holds a row; a
 retrieval with no valid row folds no BN statistics and gives g_ref = 0, so
 the coefficient is 0, as ocl_tpu's `jnp.any(mem_mask)` gate has it.
 
+In a data-parallel step (parallel/dp.py) each rank takes its rows of the
+batch and of the memory rows, and g and g_ref are each summed over the ranks
+before the dot products, so every rank projects with the same coefficient.
+
 `stacked_step` takes every point's losses under vmap and projects each
 point's gradient with its own coefficient, from dot products over that
 point's slice of the stacked leaves.
@@ -22,6 +26,7 @@ from ocl_tpu_torch.agents.er import ExperienceReplay, batch_grads, stacked_grads
 from ocl_tpu_torch.buffer import build_retrieve, build_update
 from ocl_tpu_torch.models import forward_train
 from ocl_tpu_torch.optim import _per_point
+from ocl_tpu_torch.parallel import dp
 
 
 def _dot(a, b):
@@ -46,7 +51,8 @@ class AGEM(ContinualLearner):
     def loss(self, state, ctx, x, y, mask=None):
         logits = forward_train(state.model, x, mask)
         loss = self.criterion(logits, y, ctx, mask)
-        return self.maybe_kd_blend(loss, logits, x, ctx, state.agent, mask), logits
+        loss = self.maybe_kd_blend(loss, logits, x, ctx, state.agent, mask)
+        return dp.share(loss, mask), logits
 
     def batch_loss(self, state, ctx, x, y):
         loss, logits = self.loss(state, ctx, x, y)
@@ -83,17 +89,20 @@ class AGEM(ContinualLearner):
         if draws is None:
             draws = self.draw(state.generator, xb.shape[0])
         params = list(model.parameters())
+        xb_r, yb_r = dp.local_rows(xb, yb)
         for ret_draws in draws["retrieve"]:
             opt.zero_grad()
-            loss_b, logits = self.loss(state, ctx, xb, yb)
+            loss_b, logits = self.loss(state, ctx, xb_r, yb_r)
             loss_b.backward()
-            acc_b = (logits.argmax(1) == yb).float().mean()
-            mem_x, mem_y, mem_mask = self.retrieve.run(model, buf, xb, yb, ret_draws,
-                                                       grads=batch_grads(model))
+            dp.reduce_grads(model)
+            acc_b = (logits.argmax(1) == yb_r).float().mean()
+            mem_x, mem_y, mem_mask = dp.local_rows(*self.retrieve.run(
+                model, buf, xb, yb, ret_draws, grads=batch_grads(model)))
             if ctx.task_seen > 0 and buf.current_index > 0:
                 g = [p.grad for p in params]
                 opt.zero_grad()
                 self.loss(state, ctx, mem_x, mem_y, mem_mask)[0].backward()
+                dp.reduce_grads(model)
                 g_ref = [p.grad for p in params]
                 prod = _dot(g, g_ref)
                 coef = torch.where(prod < 0, prod / torch.clamp(_dot(g_ref, g_ref), min=1e-12),

@@ -12,7 +12,9 @@ Two schedules, as in ocl_tpu:
   the memory rows, one step on the summed gradients. In ASER mode the step
   takes the gradient of one combined [memory; batch] pass instead, and the
   batch and memory passes only fold their BN statistics, so they run
-  without gradients.
+  without gradients; with MIR retrieval the batch pass still takes its
+  gradients for MIR's virtual step (ocl_tpu/agents/er.py:97-107), which are
+  dropped before the combined pass.
 
 Either way the buffer update follows with the new weights. kd_trick and
 kd_trick_star blend the batch loss (and, two-pass, the memory loss) with
@@ -27,7 +29,8 @@ device (buffer/gss.py).
 
 In a data-parallel step (parallel/dp.py) each rank takes its rows of the
 batch and of the retrieved memory; the losses are its shares of the global
-batch's, and the gradients are summed over the ranks before the step.
+batch's, and the gradients are summed over the ranks before the step. MIR
+reads the batch gradients summed over the ranks (`global_batch_grads`).
 """
 
 from __future__ import annotations
@@ -45,6 +48,14 @@ def batch_grads(model):
     return {n: p.grad for n, p in model.named_parameters()}
 
 
+def global_batch_grads(model):
+    """batch_grads summed over the ranks of a data-parallel step; the .grad
+    stay this rank's, for the one reduction before the optimizer step
+    (batch_grads outside one)."""
+    names, grads = zip(*batch_grads(model).items())
+    return dict(zip(names, dp.rank_sum_all(list(grads))))
+
+
 def stacked_grads(ss):
     """batch_grads of every point: name -> the stacked leaf's .grad."""
     return {n: p.grad for n, p in ss.model.params.items()}
@@ -54,6 +65,9 @@ class ExperienceReplay(ContinualLearner):
     def __init__(self, params):
         super().__init__(params)
         self.aser_mode = params.update == "ASER" or params.retrieve == "ASER"
+        # MIR's virtual step reads the batch gradients, so the two-pass batch
+        # pass takes them in ASER mode too
+        self.mir = params.retrieve == "MIR"
         self.fused = bool(getattr(params, "fused_replay", False)) and \
             not self.aser_mode and params.retrieve in ("random", "match")
         self.retrieve = build_retrieve(self)
@@ -132,13 +146,16 @@ class ExperienceReplay(ContinualLearner):
         model, opt, buf = state.model, state.optimizer, state.buffer
         xb_r, yb_r = dp.local_rows(xb, yb)
         opt.zero_grad()
-        with torch.set_grad_enabled(not self.aser_mode):
+        batch_grad = not self.aser_mode or self.mir
+        with torch.set_grad_enabled(batch_grad):
             loss_b, acc_b = self.batch_loss(state, ctx, xb_r, yb_r)
-        if not self.aser_mode:
+        if batch_grad:
             loss_b.backward()
 
         mem_x, mem_y, mem_mask = dp.local_rows(*self.retrieve.run(
-            model, buf, xb, yb, ret_draws, grads=None if self.aser_mode else batch_grads(model)))
+            model, buf, xb, yb, ret_draws, grads=global_batch_grads(model) if self.mir else None))
+        if self.aser_mode:
+            opt.zero_grad()   # only the combined pass feeds the step
         # ocl_tpu runs the memory pass when jnp.any(mem_mask). An empty buffer
         # has no valid row, which this host test sees; a retrieval that
         # returns no valid row from a filled buffer (match before its warmup
@@ -189,12 +206,15 @@ class ExperienceReplay(ContinualLearner):
 
     def stacked_two_pass_iter(self, ss, ctx, xb, yb, ret_draws):
         ss.optimizer.zero_grad()
-        with torch.set_grad_enabled(not self.aser_mode):
+        batch_grad = not self.aser_mode or self.mir
+        with torch.set_grad_enabled(batch_grad):
             loss_b, acc_b = point_map(ss, self.batch_loss, ctx, xb, yb)
-        if not self.aser_mode:
+        if batch_grad:
             loss_b.sum().backward()
         mem = self.stacked_retrieve(ss, ctx, xb, yb, ret_draws,
-                                    None if self.aser_mode else stacked_grads(ss))
+                                    stacked_grads(ss) if self.mir else None)
+        if self.aser_mode:
+            ss.optimizer.zero_grad()
         if ss.buffer.current_index > 0:
             with torch.set_grad_enabled(not self.aser_mode):
                 loss_m = point_map(ss, self.memory_loss, ctx, *mem)

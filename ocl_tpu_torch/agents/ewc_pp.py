@@ -13,6 +13,10 @@ Agent state: "prev_params", "running_fisher", "tmp_fisher" and
 "normalized_fisher" are dicts by parameter name, "has_prev" a 0/1 float
 tensor, "step_in_task" a Python int.
 
+In a data-parallel step (parallel/dp.py) each rank's loss is its share of
+the whole loss, penalty included, and the temporary Fisher takes the square
+of the gradient summed over the ranks: (Σ_r g_r)², not Σ_r g_r².
+
 The stacked hooks (ocl_tpu/agents/ewc_pp.py:137-172): on a StackedState the
 dicts hold [P, ...] leaves, the Fisher updates are elementwise, the penalty
 is each point's own under vmap, and `after_train_stacked` min-max normalises
@@ -27,6 +31,7 @@ import torch
 from ocl_tpu_torch.agents.base import ContinualLearner, point_map
 from ocl_tpu_torch.models import forward_train
 from ocl_tpu_torch.optim import _per_point
+from ocl_tpu_torch.parallel import dp
 
 
 class EWC_pp(ContinualLearner):
@@ -68,7 +73,7 @@ class EWC_pp(ContinualLearner):
                   for n, p in state.model.named_parameters())
         loss = loss + self.lambda_ * reg * ag["has_prev"]
         loss = self.maybe_kd_blend(loss, logits, xb, ctx, ag)
-        return loss, (logits.argmax(1) == yb).float().mean()
+        return dp.share(loss), (logits.argmax(1) == yb).float().mean()
 
     def add_squared_grads(self, ag, named_params):
         with torch.no_grad():
@@ -80,8 +85,9 @@ class EWC_pp(ContinualLearner):
         ag = state.agent
         self.fold_fisher(ag)
         state.optimizer.zero_grad()
-        loss, acc = self.loss(state, ctx, xb, yb)
+        loss, acc = self.loss(state, ctx, *dp.local_rows(xb, yb))
         loss.backward()
+        dp.reduce_grads(state.model)
         self.add_squared_grads(ag, state.model.named_parameters())
         state.optimizer.step()
         return loss.detach(), acc

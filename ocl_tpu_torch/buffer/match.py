@@ -6,6 +6,9 @@ After a warmup of `warmup * eps_mem_batch` seen samples, every wanted label
 gets one buffered sample of its class, distinct within the class. If a class
 has fewer exemplars than it is asked for, the whole retrieval is empty: an
 all-False mask, decided on the device. The warmup is a Python-int test.
+The picks read every slot's label (a slot-sharded buffer gathers them) and
+the rows come through `take`, so a data-parallel step's ranks make the same
+picks from the same draws.
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ def build_match_retrieve(agent):
         idx, ok = match_labels(buf, n_classes, y, draws["g"])
         warm = buf.n_seen_so_far > num_retrieve * warmup
         mask = (ok & warm).expand(y.shape)
-        return buf.imgs[idx], buf.labels[idx], mask
+        return (*buf.take(idx), mask)
 
     return Strategy(draw, retrieve)
 
@@ -88,7 +91,7 @@ def build_mem_match_retrieve(agent):
                                 excl_mask=exclusion_mask(cidx, cmask, mem))
         warm = buf.n_seen_so_far > num_retrieve * warmup
         mask = cmask & ok & warm
-        return (torch.cat([cx, buf.imgs[midx]]), torch.cat([cy, buf.labels[midx]]),
-                torch.cat([mask, mask]))
+        mx, my = buf.take(midx)
+        return torch.cat([cx, mx]), torch.cat([cy, my]), torch.cat([mask, mask])
 
     return Strategy(draw, retrieve)

@@ -16,11 +16,17 @@ runs the agent's own step code on its rows, under a data-parallel context
   bit for bit. `batch_sum`'s backward sums the gradient of the statistics
   over the ranks as well: rank r's backward then carries every rank's loss
   through its own rows, and the sum over ranks counts each term once;
+* a gradient read before the step is the global one: MIR's virtual step
+  takes the batch gradients summed over the ranks (`rank_sum_all`, the
+  .grad left as they are for the one reduction), AGEM reduces g and g_ref
+  before their dot products, EWC++ squares the reduced gradient;
 * feature sweeps of the retrieval and update strategies (ASER's) run on the
   rank's rows and are gathered (`row_map`), so every rank holds the same
-  features and makes the same picks; SCR's projected features are gathered
-  before its SupCon loss, whose positives span the global batch
-  (`gather_rows`, whose backward hands each rank its rows' summed gradient).
+  features and makes the same picks; MIR's two scoring forwards run on the
+  rank's rows of the subsample, their BN statistics over all of it
+  (`split_rows`); SCR's projected features are gathered before its SupCon
+  loss, whose positives span the global batch (`gather_rows`, whose
+  backward hands each rank its rows' summed gradient).
 
 The draws of a step (reservoir uniforms, Gumbel noise, augmentation) are the
 same on every rank: each rank's generator starts from the run's seed and
@@ -123,17 +129,31 @@ def share(loss, mask=None):
     return loss * n / torch.clamp(rank_sum(n), min=1.0)
 
 
-def row_map(fn, x):
-    """fn(x) for a row-wise, gradient-free fn: each rank runs its share of the
-    rows (padded to a multiple of W) and the results are gathered, so every
-    rank holds the same [n, ...] output. fn(x) outside the context."""
+def split_rows(fn, mask, *ts):
+    """fn(mask, *ts) for a gradient-free fn over rows that meet only in
+    BatchNorm's statistics over the rows where `mask`: each rank runs its
+    share of the rows, padded with masked-off rows to a multiple of W, and
+    the [n, ...] results are gathered, so every rank holds the same. The
+    statistics count each row once: had every rank run all n, the count
+    would be n W and the running variance's n / (n - 1) would drift. fn(mask,
+    *ts) outside the context."""
     if _ACTIVE is None:
-        return fn(x)
-    n = x.shape[0]
+        return fn(mask, *ts)
+    n = mask.shape[0]
     pad = (-n) % _ACTIVE.size
     if pad:
-        x = torch.cat([x, x[:1].expand(pad, *x.shape[1:])])
-    return _ACTIVE.all_gather(fn(_ACTIVE.local(x)))[:n]
+        mask = torch.cat([mask, mask.new_zeros(pad)])
+        ts = [torch.cat([t, t[:1].expand(pad, *t.shape[1:])]) for t in ts]
+    return _ACTIVE.all_gather(fn(_ACTIVE.local(mask), *(_ACTIVE.local(t) for t in ts)))[:n]
+
+
+def row_map(fn, x):
+    """fn(x) for a row-wise, gradient-free fn (split_rows' sharing of the
+    rows); fn(x) outside the context."""
+    if _ACTIVE is None:
+        return fn(x)
+    return split_rows(lambda _, r: fn(r), torch.ones(x.shape[0], dtype=torch.bool,
+                                                     device=x.device), x)
 
 
 def rank_sum_all(tensors):
@@ -160,29 +180,26 @@ def reduce_grads(model) -> None:
 
 # ------------------------------------------------------------------ the step
 
-DP_AGENTS = {
-    # agent: (retrievals, updates) the data-parallel step runs
-    "ER": (("random", "ASER"), ("random", "ASER", "GSS")),
-    "SCR": (("random",), ("random",)),
-    "CNDPM": None,   # the wake step (the sleep, on the STM, runs alike on every rank)
+# the two agents ocl_tpu's make_dp_train_task cannot take either: it jits
+# `_build_train_task_fn()` with the in_shardings of (state, ctx, xs, ys)
+DP_REFUSED = {
+    "ICARL": "its task function takes (state, label_map, n_old, all_cls, xs, ys), which "
+             "those in_shardings do not fit (a TypeError there)",
+    "GDUMB": "it has no task function: it trains in its end-of-task retrain (a "
+             "NotImplementedError there)",
 }
 
 
 def check_dp_supported(agent) -> None:
-    p = agent.params
-    name = p.agent
-    if name not in DP_AGENTS:
-        raise NotImplementedError("the data-parallel step runs {}; not {}".format(
-            ", ".join(DP_AGENTS), name))
-    if DP_AGENTS[name] is None:
-        return
-    rets, upds = DP_AGENTS[name]
-    if p.retrieve not in rets or p.update not in upds:
+    """Raise NotImplementedError for an agent the data-parallel step does not
+    run. It runs every other one, with any retrieval and update: ER, AGEM
+    and SCR, EWC++, LwF, the tricks (review_trick's pass comes after the
+    task, outside the step) and CN-DPM's wake step."""
+    name = agent.params.agent
+    if name in DP_REFUSED:
         raise NotImplementedError(
-            "the data-parallel {} step runs retrieve {} and update {}; not {} / {}".format(
-                name, "|".join(rets), "|".join(upds), p.retrieve, p.update))
-    if agent.trick.get("review_trick"):
-        raise NotImplementedError("the data-parallel step has no review_trick")
+            "the data-parallel step does not run {}, as ocl_tpu's make_dp_train_task cannot "
+            "take it: {}".format(name, DP_REFUSED[name]))
 
 
 def make_dp_train_task(agent, mesh: Mesh):

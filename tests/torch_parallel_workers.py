@@ -9,6 +9,8 @@ A step spec is a dict the test builds from ocl_tpu's state:
                "current_index", "n_seen";
   cndpm        None, or CN-DPM's (agent dict, optimizer dict);
   task_seen, old_labels, ctx_y   the agent's label bookkeeping;
+  agent        None, or ocl_tpu's agent pytree (numpy leaves: a teacher,
+               EWC's trees), through interop.agent_from_jax;
   xs, ys       numpy batches [n, B, ...], [n, B];
   draws        each step's draws, as the agent's `step` takes them;
   perturb      added to every parameter first (a control run);
@@ -74,6 +76,10 @@ def build(spec, device="cpu"):
         eval_seed = state.agent["eval_seed"]
         state.agent, state.optimizer = spec["cndpm"]
         state.agent["eval_seed"] = eval_seed
+    if spec.get("agent") is not None:
+        from ocl_tpu_torch import interop
+
+        state.agent = interop.agent_from_jax(spec["agent"], state.model)
     if spec.get("buffer") is not None:
         b, buf = spec["buffer"], state.buffer
         buf.imgs.copy_(torch.from_numpy(b["imgs"]))
@@ -93,11 +99,14 @@ def build(spec, device="cpu"):
 
 
 def result(agent, state, losses):
-    """What the tests compare: weights, buffer (whole), losses, CN-DPM's STM."""
+    """What the tests compare: weights, buffer (whole), losses, EWC's
+    temporary Fisher, CN-DPM's STM."""
     from ocl_tpu_torch.parallel.sharded_buffer import ShardedBuffer, gather_buffer
 
     out = {"sd": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
            "loss": [float(v) for v in losses]}
+    if isinstance(state.agent, dict) and "tmp_fisher" in state.agent:
+        out["tmp_fisher"] = {k: v.cpu().clone() for k, v in state.agent["tmp_fisher"].items()}
     buf = state.buffer
     if buf is not None:
         if isinstance(buf, ShardedBuffer):
@@ -139,7 +148,8 @@ def _run_plain(spec):
 
 def run_dp(spec):
     """The spec's steps data-parallel on this rank, over a slot-sharded
-    buffer (parallel/dp.py::make_dp_train_task)."""
+    buffer (parallel/dp.py::make_dp_train_task). With `first` in the spec,
+    also the result after its first `first` steps, as "first"."""
     from ocl_tpu_torch import parallel
     from ocl_tpu_torch.parallel import dp
     from ocl_tpu_torch.parallel.sharded_buffer import shard_buffer
@@ -150,17 +160,54 @@ def run_dp(spec):
         state.buffer = shard_buffer(state.buffer, mesh)
     task = dp.make_dp_train_task(agent, mesh)
     xs, ys = torch.from_numpy(spec["xs"]), torch.from_numpy(spec["ys"])
+    n = xs.shape[0]
+    cuts = [0, spec["first"], n] if spec.get("first") else [0, n]
+    losses, first = [], None
     with arithmetic(spec):
-        if agent.params.agent == "CNDPM":
-            state, m = task(state, xs, ys, spec["draws"])
-        else:
-            state, m = task(state, ctx, xs, ys, spec["draws"])
-    return result(agent, state, m["loss"])
+        for lo, hi in zip(cuts, cuts[1:]):
+            args = (xs[lo:hi], ys[lo:hi], spec["draws"][lo:hi])
+            if agent.params.agent == "CNDPM":
+                state, m = task(state, *args)
+            else:
+                state, m = task(state, ctx, *args)
+            losses += list(m["loss"])
+            if hi < n:
+                first = result(agent, state, losses)
+    out = result(agent, state, losses)
+    if first is not None:
+        out["first"] = first
+    return out
 
 
-def run_specs(specs):
-    """run_dp of every spec (by name) on this rank."""
-    return {name: run_dp(spec) for name, spec in specs.items()}
+def run_specs(specs, retrievals=None):
+    """run_dp of every spec (by name) on this rank, and mir_retrieval of
+    each of `retrievals` ({name: (spec, grads)})."""
+    out = {name: run_dp(spec) for name, spec in specs.items()}
+    for name, (spec, grads) in (retrievals or {}).items():
+        out[name] = mir_retrieval(spec, grads)
+    return out
+
+
+def mir_retrieval(spec, grads):
+    """MIR's retrieval alone, from the spec's first draws and batch with the
+    batch gradients `grads` (numpy, by parameter name): data-parallel over a
+    slot-sharded buffer on a rank of a launch, else in one process. Returns
+    the picks and the BN running statistics after MIR's pre forward."""
+    from ocl_tpu_torch import parallel
+    from ocl_tpu_torch.parallel import dp
+    from ocl_tpu_torch.parallel.sharded_buffer import shard_buffer
+
+    mesh = parallel.current()
+    agent, state, _ = build(spec)
+    buf = state.buffer if mesh is None else shard_buffer(state.buffer, mesh)
+    g = {k: torch.from_numpy(v) for k, v in grads.items()}
+    with contextlib.nullcontext() if mesh is None else dp.data_parallel(mesh):
+        x, y, mask = agent.retrieve.run(state.model, buf, torch.from_numpy(spec["xs"][0]),
+                                        torch.from_numpy(spec["ys"][0]),
+                                        spec["draws"][0]["retrieve"][0], grads=g)
+    return {"picks": (x.numpy(), y.numpy(), mask.numpy()),
+            "stats": {k: v.clone() for k, v in state.model.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))}}
 
 
 def buffer_checks(case):
